@@ -1,0 +1,53 @@
+"""differentiable_robot_model_tpu_torch: the PyTorch/CUDA port of the JAX
+package beside it, for NVIDIA Hopper GPUs.
+
+Same layout as the JAX package (`models/`, `ops/`, `trajopt/`), with the
+hand-written CUDA kernels' wrappers in `ops/kernels/` and their sources in
+`csrc/`. The port imports neither JAX nor the JAX package; it ships its own
+copies of the bundled URDFs in `robot_data/`.
+
+Entry points run on CUDA unless the caller passes `device="cpu"`, and raise
+when no CUDA device exists. Float32 work runs in full float32: the port's
+CUDA kernels do their arithmetic in FP32 without fast-math, and it expects
+`torch.backends.cuda.matmul.allow_tf32 = False` (PyTorch's default), which
+chip_smoke.py sets and asserts.
+"""
+
+from .models.robot import (
+    DifferentiableAllegroHand,
+    DifferentiableFetchArm,
+    DifferentiableFetchFull,
+    DifferentiableFrankaPanda,
+    DifferentiableKinovaJaco,
+    DifferentiableKinovaJacoFull,
+    DifferentiableKUKAiiwa,
+    DifferentiableKukaIiwaAllegro,
+    DifferentiablePandaWithGripper,
+    DifferentiableRobotModel,
+    DifferentiableTrifingerEdu,
+    DifferentiableTwoLinkRobot,
+    robot_description_folder,
+)
+from .models.structs import RobotStruct, struct_from_arrays
+from .models.urdf import robot_struct_from_urdf
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DifferentiableRobotModel",
+    "DifferentiableKUKAiiwa",
+    "DifferentiableFrankaPanda",
+    "DifferentiableTwoLinkRobot",
+    "DifferentiableTrifingerEdu",
+    "DifferentiableAllegroHand",
+    "DifferentiableFetchArm",
+    "DifferentiableKinovaJaco",
+    "DifferentiableKinovaJacoFull",
+    "DifferentiableKukaIiwaAllegro",
+    "DifferentiablePandaWithGripper",
+    "DifferentiableFetchFull",
+    "RobotStruct",
+    "robot_struct_from_urdf",
+    "struct_from_arrays",
+    "robot_description_folder",
+]

@@ -1,0 +1,262 @@
+"""The whole kinematic Adam MPC solve in one launch: kernel K3 `kin_solve`
+(csrc/kin_solve.cu), its plain PyTorch version, and the wrapper.
+
+Replaces the JAX package's ops/pallas/solver.py `_kin_solve_kernel` and
+its wrapper `kinematic_adam_solve_fused`: per scenario, n_iters times,
+the clamp-affine rollout q' = clip(q + a), the ee FK of every stage, the
+cost cgoal_w * sum |p - goal|^2, the adjoint by replay, and the
+optax-style Adam update applied per stage during the adjoint sweep.
+
+Bound on the H100: the function needs about (H-1) (n_iters+1) chain sweeps
+per scenario (each one sincos and a few dozen FP32 operations per revolute
+link once the robot's zero and unit constants are folded) over only ~12 MB
+of inputs and outputs at iiwa H=50 B=4096, so FP32 throughput would bound
+it; the kernel sweeps twice per stage and iteration, and with one thread
+per scenario, B=4096 fills one warp per SM, so the dependent chain of each
+thread's operations (latency) is what bounds it in practice. The kernel's design note (csrc/kin_solve.cu)
+says what it does about that.
+
+On a CUDA tensor the wrapper launches the kernel or raises; it takes the
+plain version only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ...models.structs import RobotStruct
+from . import build
+from .fk import CHAIN_CTYPES, MAX_CHAIN, MAX_DOF, chain_constants, chain_struct, chain_sweep, joint_vjp
+
+_B1 = 0.9
+_B2 = 0.999
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+class _KinSolveParams(ctypes.Structure):
+    _fields_ = [
+        ("H", ctypes.c_int), ("n_iters", ctypes.c_int),
+        ("cgoal_w", ctypes.c_float), ("gpe_w", ctypes.c_float),
+        ("b1", ctypes.c_float), ("b2", ctypes.c_float),
+        ("omb1", ctypes.c_float), ("omb2", ctypes.c_float),
+        ("eps", ctypes.c_float), ("eps_root", ctypes.c_float),
+        ("lo", ctypes.c_float * MAX_DOF), ("hi", ctypes.c_float * MAX_DOF),
+    ]
+
+
+def solve_constants(dtype: torch.dtype, H: int, n_iters: int, lr: float,
+                    goal_weight: float, eps: float, eps_root: float) -> dict:
+    """The solve's scalars rounded to `dtype` as solver.py:438-443 does, and
+    the bias-correction table of solver.py:561-567 (computed in f64, then
+    cast): bc[2t] = lr / (1 - b1^(t+1)), bc[2t+1] = 1 / (1 - b2^(t+1))."""
+    nd = _NP_DTYPE[dtype]
+    r = lambda x: float(nd(x))
+    gw2 = r(r(goal_weight) * r(goal_weight))
+    cgoal_w = r(gw2 / (3.0 * H))
+    tgrid = np.arange(1, n_iters + 1, dtype=np.float64)
+    alpha = nd(lr) / (1.0 - np.float64(_B1) ** tgrid)
+    ibc2 = 1.0 / (1.0 - np.float64(_B2) ** tgrid)
+    bc = np.empty(2 * n_iters, nd)
+    bc[0::2] = alpha.astype(nd)
+    bc[1::2] = ibc2.astype(nd)
+    return dict(
+        cgoal_w=cgoal_w, gpe_w=r(2.0 * cgoal_w),
+        b1=r(_B1), b2=r(_B2), omb1=r(1.0 - _B1), omb2=r(1.0 - _B2),
+        eps=r(eps), eps_root=r(eps_root), bc=bc,
+    )
+
+
+def _validate(robot, q0T, goalT, aT0, n_iters):
+    if aT0.dim() != 3:
+        raise ValueError(f"aT0 must be [H, D, B], got {tuple(aT0.shape)}")
+    H, D, B = aT0.shape
+    if H < 2:
+        raise ValueError("the whole-solve needs horizon >= 2 (one action step)")
+    if n_iters < 1:
+        raise ValueError("the whole-solve needs n_iters >= 1")
+    if D == 0 or D != robot.n_dofs:
+        raise ValueError(f"aT0 has {D} dofs; the robot has {robot.n_dofs} (and needs >= 1)")
+    for name, x, shape in (("q0T", q0T, (D, B)), ("goalT", goalT, (3, B))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {tuple(x.shape)}")
+    for name, x in (("q0T", q0T), ("goalT", goalT), ("aT0", aT0)):
+        if x.dtype != robot.dtype or x.device != robot.device:
+            raise ValueError(
+                f"{name} is {x.dtype} on {x.device}; the robot is "
+                f"{robot.dtype} on {robot.device}"
+            )
+    return H, D, B
+
+
+def _clip(x, lo, hi):
+    # jnp.clip's max-then-min, whose gradient is 0.5 at an exact tie (not
+    # torch.clamp, whose gradient there is 1).
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def kinematic_adam_solve_reference(
+    robot: RobotStruct,
+    q0T: torch.Tensor,
+    goalT: torch.Tensor,
+    aT0: torch.Tensor,
+    ee_link_idx: int,
+    n_iters: int,
+    lr: float,
+    goal_weight: float,
+    eps: float,
+    eps_root: float = 1e-8,
+):
+    """Plain version of K3: returns (a [H, D, B] optimized action deltas,
+    costs [n_iters+1, B]); q0T [D, B] is already clipped.
+
+    The kernel's arithmetic element for element, with its sweeps batched
+    over the stages: the replayed q'_h of the adjoint equal the forward's
+    saved ones (a_h is read before its own update), so every stage's FK and
+    Jacobian product run as one sweep on [H-1, B] lanes, and only the
+    elementwise adjoint recursion and the Adam updates walk the stages.
+    """
+    H, D, B = _validate(robot, q0T, goalT, aT0, n_iters)
+    consts = chain_constants(robot, ee_link_idx)
+    c = solve_constants(robot.dtype, H, n_iters, lr, goal_weight, eps, eps_root)
+    lo, hi = robot.limit_lower[:, None], robot.limit_upper[:, None]
+    a = aT0.clone()
+    m = torch.zeros_like(a)
+    v = torch.zeros_like(a)
+
+    pe0 = chain_sweep(consts, lambda d: q0T[d], q0T[0])
+    cg0 = torch.zeros_like(q0T[0])
+    for j in range(3):
+        diff = pe0[j] - goalT[j]
+        cg0 = cg0 + diff * diff
+
+    def forward():
+        q, qs = q0T, []
+        for h in range(H - 1):
+            q = _clip(q + a[h], lo, hi)
+            qs.append(q)
+        qs = torch.stack(qs)  # [H-1, D, B]
+        ps = chain_sweep(consts, lambda d: qs[:, d], qs[:, 0])  # 3 x [H-1, B]
+        cg = cg0
+        for h in range(H - 1):
+            for j in range(3):
+                diff = ps[j][h] - goalT[j]
+                cg = cg + diff * diff
+        return c["cgoal_w"] * cg, qs, ps
+
+    costs = []
+    for t in range(n_iters):
+        cost, qs, ps = forward()
+        costs.append(cost)
+        alpha, ibc2 = float(c["bc"][2 * t]), float(c["bc"][2 * t + 1])
+        # J(q'_h)^T gpe_h for every stage, by the geometric-Jacobian identity.
+        gpe = [c["gpe_w"] * (ps[j] - goalT[j]) for j in range(3)]
+        rows = [torch.zeros_like(qs[:, 0]) for _ in range(D)]
+
+        def record(jt, dof, z, o):
+            rows[dof] = joint_vjp(jt, z, o, ps, gpe)
+
+        chain_sweep(consts, lambda d: qs[:, d], qs[:, 0], record)
+        jtg = torch.stack(rows, dim=1)  # [H-1, D, B]
+        # d clip / dx at x_h = q'_{h-1} + a_h, by autograd of max-then-min.
+        with torch.enable_grad():
+            x = (torch.cat([q0T[None], qs[:-1]]) + a[: H - 1]).requires_grad_(True)
+            (clip_grad,) = torch.autograd.grad(_clip(x, lo, hi), x, torch.ones_like(x))
+        gq = torch.zeros_like(q0T)
+        for h in range(H - 2, -1, -1):
+            gq = (gq + jtg[h]) * clip_grad[h]  # da_h, and the cotangent of q'_{h-1}
+            m[h] = c["b1"] * m[h] + c["omb1"] * gq
+            v[h] = c["b2"] * v[h] + c["omb2"] * (gq * gq)
+            a[h] = a[h] - alpha * m[h] / (torch.sqrt(v[h] * ibc2 + c["eps_root"]) + c["eps"])
+    costs.append(forward()[0])
+    return a, torch.stack(costs)
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    sizes = (ctypes.c_int64 * 4)()
+    lib.kin_solve_layout.argtypes = [ctypes.c_void_p]
+    lib.kin_solve_layout.restype = None
+    lib.kin_solve_layout(sizes)
+    expect = (
+        ctypes.sizeof(CHAIN_CTYPES[torch.float32]),
+        ctypes.sizeof(_KinSolveParams),
+        MAX_CHAIN,
+        MAX_DOF,
+    )
+    if tuple(sizes) != expect:
+        raise RuntimeError(f"csrc/kin_solve.cu layout {tuple(sizes)} != Python's {expect}")
+    p = ctypes.c_void_p
+    lib.kin_solve_f32.argtypes = [p] * 12 + [ctypes.c_int64, p]
+    lib.kin_solve_f32.restype = ctypes.c_int
+
+
+def kinematic_adam_solve(
+    robot: RobotStruct,
+    q0T: torch.Tensor,
+    goalT: torch.Tensor,
+    aT0: torch.Tensor,
+    ee_link_idx: int,
+    n_iters: int,
+    lr: float,
+    goal_weight: float,
+    eps: float,
+    eps_root: float = 1e-8,
+):
+    """K3: the whole kinematic Adam solve. q0T [D, B] start configs, already
+    clipped; goalT [3, B]; aT0 [H, D, B] initial action deltas. Returns
+    (a [H, D, B], costs [n_iters+1, B]): costs[t] is the cost before update
+    t and costs[n_iters] the final one. Raises for H < 2, n_iters < 1, a
+    robot without dofs, or (on CUDA) input that is not float32."""
+    H, D, B = _validate(robot, q0T, goalT, aT0, n_iters)
+    for f in ("limit_lower", "limit_upper"):
+        if getattr(robot, f).requires_grad:
+            raise ValueError(f"robot.{f} requires grad: use fk_impl='scalar'")
+    if q0T.device.type == "cpu":
+        return kinematic_adam_solve_reference(
+            robot, q0T, goalT, aT0, ee_link_idx, n_iters, lr, goal_weight, eps, eps_root
+        )
+    if q0T.device.type != "cuda":
+        raise ValueError(f"kin_solve takes CUDA or CPU tensors, not {q0T.device}")
+    if robot.dtype != torch.float32:
+        raise TypeError(f"kin_solve is float32 only; got {robot.dtype}")
+    for name, x in (("q0T", q0T), ("goalT", goalT), ("aT0", aT0)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    ch = chain_struct(robot, ee_link_idx)
+    c = solve_constants(robot.dtype, H, n_iters, lr, goal_weight, eps, eps_root)
+    host = robot.numpy()
+    params = _KinSolveParams(
+        H=H, n_iters=n_iters, cgoal_w=c["cgoal_w"], gpe_w=c["gpe_w"],
+        b1=c["b1"], b2=c["b2"], omb1=c["omb1"], omb2=c["omb2"],
+        eps=c["eps"], eps_root=c["eps_root"],
+    )
+    params.lo[:D] = host["limit_lower"].tolist()
+    params.hi[:D] = host["limit_upper"].tolist()
+
+    dev = q0T.device
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    a, m, v, qs = (empty(H, D, B) for _ in range(4))
+    ps = empty(H, 3, B)
+    costs = empty(n_iters + 1, B)
+    if B == 0:
+        return a, costs
+    bc = torch.from_numpy(c["bc"]).to(dev)
+    lib = build.load("kin_solve", _configure)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.kin_solve_f32(
+            ctypes.byref(ch), ctypes.byref(params),
+            q0T.data_ptr(), goalT.data_ptr(), aT0.data_ptr(), bc.data_ptr(),
+            a.data_ptr(), costs.data_ptr(), m.data_ptr(), v.data_ptr(),
+            qs.data_ptr(), ps.data_ptr(), B, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"kin_solve: CUDA error {rc} at launch")
+    kinematic_adam_solve.launches += 1
+    return a, costs
+
+
+kinematic_adam_solve.launches = 0

@@ -1,0 +1,121 @@
+"""Kinematic rollouts: clamped joint-delta integration and the ee trajectory.
+
+PyTorch counterpart of the kinematic half of the JAX package's
+`trajopt/rollout.py`. Clipping is `torch.minimum(torch.maximum(x, lo), hi)`
+everywhere, never `torch.clamp`: like `jnp.clip` it passes a gradient of 0.5
+at an exact tie with a limit, where `torch.clamp` passes 1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.structs import RobotStruct
+from ..ops import kinematics as K
+
+
+def clip_to_limits(robot: RobotStruct, q: torch.Tensor) -> torch.Tensor:
+    """Clamp joint positions (dof on the last axis) to the URDF limits."""
+    return torch.minimum(torch.maximum(q, robot.limit_lower), robot.limit_upper)
+
+
+def clamp_affine_combine(e1, e2):
+    """Associative composition of clamp-affine maps f(x)=min(max(x+a,b),c).
+
+    (f2 o f1) = (a1+a2, max(b1+a2, b2), min(max(c1+a2, b2), c2)).
+    """
+    a1, b1, c1 = e1
+    a2, b2, c2 = e2
+    return (
+        a1 + a2,
+        torch.maximum(b1 + a2, b2),
+        torch.minimum(torch.maximum(c1 + a2, b2), c2),
+    )
+
+
+def _slice(x: torch.Tensor, dim: int, start, stop=None, step=1):
+    return x[(slice(None),) * dim + (slice(start, stop, step),)]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """[a0, b0, a1, b1, ...] along dim; a has as many or one more entries."""
+    n = b.shape[dim]
+    pairs = torch.stack([_slice(a, dim, 0, n), b], dim=dim + 1).flatten(dim, dim + 1)
+    if a.shape[dim] == n:
+        return pairs
+    return torch.cat([pairs, _slice(a, dim, n)], dim=dim)
+
+
+def associative_scan(fn, elems, dim: int):
+    """Inclusive scan of the associative `fn` over a tuple of tensors along
+    `dim`, combining in the same tree as `jax.lax.associative_scan`, so the
+    values and the subgradients at ties match the JAX package's term for
+    term."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+    reduced = fn(
+        tuple(_slice(e, dim, 0, -1, 2) for e in elems),
+        tuple(_slice(e, dim, 1, None, 2) for e in elems),
+    )
+    odd = associative_scan(fn, reduced, dim)
+    if n % 2 == 0:
+        even = fn(
+            tuple(_slice(e, dim, 0, -1) for e in odd),
+            tuple(_slice(e, dim, 2, None, 2) for e in elems),
+        )
+    else:
+        even = fn(odd, tuple(_slice(e, dim, 2, None, 2) for e in elems))
+    even = tuple(
+        torch.cat([_slice(e, dim, 0, 1), r], dim=dim) for e, r in zip(elems, even)
+    )
+    return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
+
+
+def clamp_affine_q_traj(q_start, u, lo, hi, axis: int = 0):
+    """Clipped joint trajectory from the composed steps min(max(x + u_t, lo), hi).
+
+    `u` carries the H-1 steps on `axis`; `lo`/`hi` broadcast against `u`;
+    `q_start` is `u` without the horizon axis. Returns the [.., H, ..]
+    trajectory with `q_start` as entry 0 along `axis`.
+    """
+    q_start_h = q_start.unsqueeze(axis)
+    if u.shape[axis] == 0:  # horizon == 1: no integration steps
+        return q_start_h
+    A, Bnd, Cnd = associative_scan(
+        clamp_affine_combine,
+        (u, torch.broadcast_to(lo, u.shape), torch.broadcast_to(hi, u.shape)),
+        axis,
+    )
+    q_tail = torch.minimum(torch.maximum(q_start_h + A, Bnd), Cnd)
+    return torch.cat([q_start_h, q_tail], dim=axis)
+
+
+def kinematic_rollout(
+    robot: RobotStruct,
+    q0: torch.Tensor,
+    actions: torch.Tensor,
+    ee_link_idx: int,
+    stop_gradient_between_steps: bool = False,
+):
+    """Roll joint-position deltas through FK. Unbatched: q0 [D], actions [H, D].
+
+    Returns (ee_traj [H, 3], q_traj [H, D]): entry 0 is the start state, then
+    H-1 action steps (the last action is unused, as in the reference).
+    `stop_gradient_between_steps=True` detaches the state between steps, so
+    each action reaches the cost only through its own step's FK.
+    """
+    q_start = clip_to_limits(robot, q0)
+    if stop_gradient_between_steps:
+        qs = [q_start]
+        for u in actions[:-1]:
+            qs.append(clip_to_limits(robot, qs[-1].detach() + u))
+        q_clipped = torch.stack(qs)
+    else:
+        q_clipped = clamp_affine_q_traj(
+            q_start, actions[:-1], robot.limit_lower, robot.limit_upper
+        )  # [H, D]
+    ee_traj = K.fk_link_position(robot, q_clipped, ee_link_idx)
+    # q_traj keeps the raw q0 as entry 0; the clipped start only feeds the FK.
+    q_traj = torch.cat([q0[None], q_clipped[1:]], dim=0)
+    return ee_traj, q_traj
