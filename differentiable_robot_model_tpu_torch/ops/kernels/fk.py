@@ -84,6 +84,22 @@ def chain_constants(robot: RobotStruct, link_idx: int) -> ChainConsts:
     return robot.memo(("chain", link_idx), lambda: _chain_constants(robot, link_idx))
 
 
+def fixed_rotation(rpy, rnd) -> np.ndarray:
+    """The joint origin's rpy rotation Rz(yaw) Ry(pitch) Rx(roll) from
+    cos/sin each rounded by `rnd`, as the TPU kernels fold it."""
+    roll, pitch, yaw = np.asarray(rpy, np.float64)
+    cr, sr = rnd(np.cos(roll)), rnd(np.sin(roll))
+    cp, sp = rnd(np.cos(pitch)), rnd(np.sin(pitch))
+    cy, sy = rnd(np.cos(yaw)), rnd(np.sin(yaw))
+    return np.array(
+        [
+            [cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
+            [sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
+            [-sp, cp * sr, cp * cr],
+        ]
+    )
+
+
 def _chain_constants(robot: RobotStruct, link_idx: int) -> ChainConsts:
     chain = chain_to(robot, link_idx)
     if len(chain) > MAX_CHAIN:
@@ -96,17 +112,7 @@ def _chain_constants(robot: RobotStruct, link_idx: int) -> ChainConsts:
     link_dof = {l: d for d, l in enumerate(robot.dof_links)}
     F_all, a_all, Fa_all, t_all = [], [], [], []
     for l in chain:
-        roll, pitch, yaw = host["rot_angles"][l].astype(np.float64)
-        cr, sr = rnd(np.cos(roll)), rnd(np.sin(roll))
-        cp, sp = rnd(np.cos(pitch)), rnd(np.sin(pitch))
-        cy, sy = rnd(np.cos(yaw)), rnd(np.sin(yaw))
-        F = np.array(
-            [
-                [cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
-                [sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
-                [-sp, cp * sr, cp * cr],
-            ]
-        )
+        F = fixed_rotation(host["rot_angles"][l], rnd)
         a = host["axis"][l].astype(np.float64)
         F_all.append(tuple(rnd(F).ravel().tolist()))
         a_all.append(tuple(a.tolist()))

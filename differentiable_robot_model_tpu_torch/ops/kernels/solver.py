@@ -1,7 +1,10 @@
-"""The whole kinematic Adam MPC solve in one launch: kernel K3 `kin_solve`
-(csrc/kin_solve.cu), its plain PyTorch version, and the wrapper.
+"""Whole Adam MPC solves in one launch: kernel K3 `kin_solve`
+(csrc/kin_solve.cu, kinematic) and kernel K9 `dyn_solve` with its prologue
+`dyn_prologue` (csrc/dyn_solve.cu, torque space), their plain PyTorch
+versions, and the wrappers. The dynamic half is described at
+`dynamic_adam_solve`.
 
-Replaces the JAX package's ops/pallas/solver.py `_kin_solve_kernel` and
+K3 replaces the JAX package's ops/pallas/solver.py `_kin_solve_kernel` and
 its wrapper `kinematic_adam_solve_fused`: per scenario, n_iters times,
 the clamp-affine rollout q' = clip(q + a), the ee FK of every stage, the
 cost cgoal_w * sum |p - goal|^2, the adjoint by replay, and the
@@ -28,8 +31,31 @@ import numpy as np
 import torch
 
 from ...models.structs import RobotStruct
+from ...trajopt.rollout import _clip, _effort_bound
+from ..dynamics_scalar import ldl_solve_scalar, mass_matrix_scalar, rnea_scalar
 from . import build
-from .fk import CHAIN_CTYPES, MAX_CHAIN, MAX_DOF, chain_constants, chain_struct, chain_sweep, joint_vjp
+from .fk import (
+    CHAIN_CTYPES,
+    MAX_CHAIN,
+    MAX_DOF,
+    _check_cuda,
+    _suffix,
+    chain_constants,
+    chain_struct,
+    chain_sweep,
+    joint_vjp,
+)
+from .rollout import (
+    TREE_CTYPES,
+    StepFlags,
+    StepReplay,
+    _clip_grad,
+    _states_before,
+    check_same,
+    dyn_rollout_ee_fwd_reference,
+    ee_jacobian_t,
+    tree_struct,
+)
 
 _B1 = 0.9
 _B2 = 0.999
@@ -49,14 +75,17 @@ class _KinSolveParams(ctypes.Structure):
 
 
 def solve_constants(dtype: torch.dtype, H: int, n_iters: int, lr: float,
-                    goal_weight: float, eps: float, eps_root: float) -> dict:
-    """The solve's scalars rounded to `dtype` as solver.py:438-443 does, and
-    the bias-correction table of solver.py:561-567 (computed in f64, then
-    cast): bc[2t] = lr / (1 - b1^(t+1)), bc[2t+1] = 1 / (1 - b2^(t+1))."""
+                    goal_weight: float, eps: float, eps_root: float,
+                    effort_weight: float = 0.0, D: int = 1) -> dict:
+    """The solve's scalars rounded to `dtype` as solver.py:129-136 and
+    :438-443 do (the effort terms only matter to the dynamic solve), and the
+    bias-correction table of solver.py:311-317 (computed in f64, then cast):
+    bc[2t] = lr / (1 - b1^(t+1)), bc[2t+1] = 1 / (1 - b2^(t+1))."""
     nd = _NP_DTYPE[dtype]
     r = lambda x: float(nd(x))
     gw2 = r(r(goal_weight) * r(goal_weight))
     cgoal_w = r(gw2 / (3.0 * H))
+    ceff_w = r(r(effort_weight) / (H * D))
     tgrid = np.arange(1, n_iters + 1, dtype=np.float64)
     alpha = nd(lr) / (1.0 - np.float64(_B1) ** tgrid)
     ibc2 = 1.0 / (1.0 - np.float64(_B2) ** tgrid)
@@ -64,7 +93,7 @@ def solve_constants(dtype: torch.dtype, H: int, n_iters: int, lr: float,
     bc[0::2] = alpha.astype(nd)
     bc[1::2] = ibc2.astype(nd)
     return dict(
-        cgoal_w=cgoal_w, gpe_w=r(2.0 * cgoal_w),
+        cgoal_w=cgoal_w, gpe_w=r(2.0 * cgoal_w), ceff_w=ceff_w, geff_w=r(2.0 * ceff_w),
         b1=r(_B1), b2=r(_B2), omb1=r(1.0 - _B1), omb2=r(1.0 - _B2),
         eps=r(eps), eps_root=r(eps_root), bc=bc,
     )
@@ -90,12 +119,6 @@ def _validate(robot, q0T, goalT, aT0, n_iters):
                 f"{robot.dtype} on {robot.device}"
             )
     return H, D, B
-
-
-def _clip(x, lo, hi):
-    # jnp.clip's max-then-min, whose gradient is 0.5 at an exact tie (not
-    # torch.clamp, whose gradient there is 1).
-    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 def kinematic_adam_solve_reference(
@@ -260,3 +283,245 @@ def kinematic_adam_solve(
 
 
 kinematic_adam_solve.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The dynamic whole solve: kernel K9 `dyn_solve` and its prologue.
+# ---------------------------------------------------------------------------
+
+
+class _DynSolveParams(ctypes.Structure):
+    _fields_ = [
+        ("H", ctypes.c_int), ("n_iters", ctypes.c_int),
+        ("precond", ctypes.c_int), ("effort", ctypes.c_int),
+        ("cgoal_w", ctypes.c_float), ("ceff_w", ctypes.c_float),
+        ("gpe_w", ctypes.c_float), ("geff_w", ctypes.c_float),
+        ("b1", ctypes.c_float), ("b2", ctypes.c_float),
+        ("omb1", ctypes.c_float), ("omb2", ctypes.c_float),
+        ("eps", ctypes.c_float), ("eps_root", ctypes.c_float),
+    ]
+
+
+def _configure_dyn(lib: ctypes.CDLL) -> None:
+    sizes = (ctypes.c_int64 * 4)()
+    lib.dyn_solve_layout.argtypes = [ctypes.c_void_p]
+    lib.dyn_solve_layout.restype = None
+    lib.dyn_solve_layout(sizes)
+    expect = (
+        ctypes.sizeof(TREE_CTYPES[torch.float32]),
+        ctypes.sizeof(TREE_CTYPES[torch.float64]),
+        ctypes.sizeof(CHAIN_CTYPES[torch.float32]),
+        ctypes.sizeof(_DynSolveParams),
+    )
+    if tuple(sizes) != expect:
+        raise RuntimeError(f"csrc/dyn_solve.cu layout {tuple(sizes)} != Python's {expect}")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in ("dyn_prologue_f32", "dyn_prologue_f64"):
+        getattr(lib, fn).argtypes = [p] * 6 + [i, i, ctypes.c_int64, p]
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.dyn_solve_f32.argtypes = [p] * 19 + [ctypes.c_int64, p]
+    lib.dyn_solve_f32.restype = ctypes.c_int
+
+
+def _launch_dyn(name, args, dev):
+    lib = build.load("dyn_solve", _configure_dyn)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def dyn_prologue_reference(robot: RobotStruct, q0T, init_tauT, horizon: int,
+                           precondition: bool = True):
+    """Plain version of `dyn_prologue`: (tau_refT [D, B] gravity
+    compensation, H0 [D, D, B] mass matrix or None, aT0 [H, D, B] initial
+    action deltas), the eager code of solvers.py:424-425 and :487-506."""
+    D, B = q0T.shape
+    zeros = torch.zeros_like(q0T)
+    tau_refT = rnea_scalar(robot, q0T, zeros, zeros)
+    H0 = mass_matrix_scalar(robot, q0T) if precondition else None
+    if init_tauT is None:
+        return tau_refT, H0, torch.zeros((horizon, D, B), dtype=q0T.dtype, device=q0T.device)
+    dtau0 = init_tauT - tau_refT[None]
+    if H0 is None:
+        return tau_refT, None, dtau0
+    return tau_refT, H0, ldl_solve_scalar(H0, dtau0.transpose(0, 1)).transpose(0, 1)
+
+
+def dyn_prologue(robot: RobotStruct, q0T, init_tauT, horizon: int, precondition: bool = True):
+    """The dynamic solve's prologue in one launch: per scenario the gravity
+    torques at q0 (tau_refT [D, B]), the mass matrix H0 [D, D, B] (with
+    `precondition`, else None) and the warm start's absolute torques
+    init_tauT [H, D, B] mapped back to action deltas through H0's LDL^T
+    factor (aT0 [H, D, B]; zeros when init_tauT is None). It replaces eager
+    code, not a TPU kernel: solvers.py:424-425 and :500-502."""
+    D, B = q0T.shape
+    if D == 0 or D != robot.n_dofs:
+        raise ValueError(f"q0T has {D} dofs; the robot has {robot.n_dofs} (and needs >= 1)")
+    named = [("q0T", q0T)]
+    if init_tauT is not None:
+        if tuple(init_tauT.shape) != (horizon, D, B):
+            raise ValueError(f"init_tauT must be {[horizon, D, B]}, got {tuple(init_tauT.shape)}")
+        named.append(("init_tauT", init_tauT))
+    check_same(robot, named)
+    if q0T.device.type == "cpu":
+        return dyn_prologue_reference(robot, q0T, init_tauT, horizon, precondition)
+    for name, x in named:
+        _check_cuda(x, name)
+    tree = tree_struct(robot, StepFlags(0.0))
+    new = lambda *shape: torch.empty(shape, dtype=q0T.dtype, device=q0T.device)
+    tau_refT, aT0 = new(D, B), new(horizon, D, B)
+    H0 = new(D, D, B) if precondition else None
+    if B:
+        _launch_dyn(
+            f"dyn_prologue_{_suffix(q0T.dtype)}",
+            (ctypes.byref(tree), q0T.data_ptr(),
+             None if init_tauT is None else init_tauT.data_ptr(),
+             tau_refT.data_ptr(), None if H0 is None else H0.data_ptr(), aT0.data_ptr(),
+             horizon, int(precondition), B),
+            q0T.device,
+        )
+        dyn_prologue.launches += 1
+    return tau_refT, H0, aT0
+
+
+dyn_prologue.launches = 0
+
+
+def _validate_dyn(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters):
+    if aT0.dim() != 3:
+        raise ValueError(f"aT0 must be [H, D, B], got {tuple(aT0.shape)}")
+    H, D, B = aT0.shape
+    if H < 1 or n_iters < 1:
+        raise ValueError("the dynamic whole-solve needs horizon >= 1 and n_iters >= 1")
+    if D == 0 or D != robot.n_dofs:
+        raise ValueError(f"aT0 has {D} dofs; the robot has {robot.n_dofs} (and needs >= 1)")
+    named = [("q0T", q0T, (D, B)), ("qd0T", qd0T, (D, B)), ("goalT", goalT, (3, B)),
+             ("tau_refT", tau_refT, (D, B)), ("aT0", aT0, (H, D, B))]
+    if H0 is not None:
+        named.append(("H0", H0, (D, D, B)))
+    for name, x, shape in named:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {tuple(x.shape)}")
+    check_same(robot, [(n, x) for n, x, _ in named])
+    return H, D, B, [(n, x) for n, x, _ in named]
+
+
+def dynamic_adam_solve_reference(
+    robot: RobotStruct, q0T, qd0T, goalT, tau_refT, H0, aT0, ee_link_idx: int,
+    n_iters: int, dt: float, lr: float, goal_weight: float, effort_weight: float,
+    eps: float, use_damping: bool = True, respect_effort_limits: bool = False,
+    eps_root: float = 1e-8,
+):
+    """Plain version of K9 `dyn_solve`: the kernel's arithmetic per Adam
+    iteration from the plain rollout pieces (`dyn_rollout_ee_fwd_reference`
+    forward, `StepReplay` backward), the effort box inside the
+    step, the cost gradient chained through H0ᵀ, and the optax-form Adam
+    update applied to each stage during the reverse sweep, as
+    ops/pallas/solver.py:231-243 applies it."""
+    H, D, B, _ = _validate_dyn(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters)
+    c = solve_constants(robot.dtype, H, n_iters, lr, goal_weight, eps, eps_root, effort_weight, D)
+    flags = StepFlags(dt, use_damping)
+    emax = _effort_bound(robot, 1) if respect_effort_limits else None
+    box = (lambda x: x) if emax is None else (lambda x: _clip(x, -emax, emax))
+    a = aT0.clone()
+    m, v = torch.zeros_like(a), torch.zeros_like(a)
+
+    def forward():
+        dtau = a if H0 is None else torch.einsum("deb,heb->hdb", H0, a)
+        tau = tau_refT + dtau
+        qs, qds, ps = dyn_rollout_ee_fwd_reference(
+            robot, q0T, qd0T, box(tau), dt, ee_link_idx, use_damping
+        )
+        diff = ps - goalT
+        cost = c["cgoal_w"] * (diff * diff).sum((0, 1)) + c["ceff_w"] * (dtau * dtau).sum((0, 1))
+        return cost, tau, qs, qds, ps
+
+    costs = []
+    for t in range(n_iters):
+        cost, tau, qs, qds, ps = forward()
+        costs.append(cost)
+        alpha, ibc2 = float(c["bc"][2 * t]), float(c["bc"][2 * t + 1])
+        jtg = ee_jacobian_t(robot, qs, ps, c["gpe_w"] * (ps - goalT), ee_link_idx)
+        mask = None if emax is None else _clip_grad(tau, -emax, emax)
+        replay = StepReplay(robot, _states_before(q0T, qs), _states_before(qd0T, qds), box(tau), flags)
+        gq, gqd = torch.zeros_like(q0T), torch.zeros_like(q0T)
+        for h in range(H - 1, -1, -1):
+            lam, gq, gqd = replay.pull(h, gq + jtg[h], gqd)
+            gt = (lam if mask is None else lam * mask[h]) + c["geff_w"] * (tau[h] - tau_refT)
+            ga = gt if H0 is None else torch.einsum("deb,db->eb", H0, gt)
+            m[h] = c["b1"] * m[h] + c["omb1"] * ga
+            v[h] = c["b2"] * v[h] + c["omb2"] * (ga * ga)
+            a[h] = a[h] - alpha * m[h] / (torch.sqrt(v[h] * ibc2 + c["eps_root"]) + c["eps"])
+    cost, tau, *_ = forward()
+    costs.append(cost)
+    return box(tau), torch.stack(costs)
+
+
+def dynamic_adam_solve(
+    robot: RobotStruct, q0T, qd0T, goalT, tau_refT, H0, aT0, ee_link_idx: int,
+    n_iters: int, dt: float, lr: float, goal_weight: float, effort_weight: float,
+    eps: float, use_damping: bool = True, respect_effort_limits: bool = False,
+    eps_root: float = 1e-8,
+):
+    """K9 `dyn_solve`: the whole torque-space Adam solve in one launch.
+
+    Replaces the JAX package's ops/pallas/solver.py `_solve_kernel` (wrapper
+    `adam_solve_fused`): per scenario, n_iters times, the rollout of
+    tau = tau_ref + H0 a (effort box inside the step) with the ee
+    trajectory, the goal + effort cost, the adjoint by replay (the
+    implicit-function step adjoint of ops/kernels/rollout.py, the effort
+    gradient on the unclipped tau - tau_ref, the H0ᵀ chain) and the
+    optax-form Adam update of each stage during the reverse sweep. q0T,
+    qd0T, tau_refT [D, B], goalT [3, B], H0 [D, D, B] or None (no
+    preconditioning), aT0 [H, D, B]. Returns (tau [H, D, B] applied torques,
+    costs [n_iters+1, B]): costs[t] before update t, costs[n_iters] final.
+
+    Bound on the H100: per scenario, stage and iteration one step and one
+    chain FK forward, and a replayed step, an LDL^T solve, 2D dual RNEA
+    sweeps and a Jacobian sweep backward: tens of thousands of FP32
+    operations over a few hundred bytes of inputs, so operations bound it;
+    with one thread per scenario (one warp per SM at B=4096) each thread's
+    dependent chain sets the time. Scratch a, m, v, tau_s, qs, qds, ps
+    (about 37 MB at iiwa H=50, B=4096) is batch-minor in global memory.
+    """
+    H, D, B, named = _validate_dyn(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters)
+    if q0T.device.type == "cpu":
+        return dynamic_adam_solve_reference(
+            robot, q0T, qd0T, goalT, tau_refT, H0, aT0, ee_link_idx, n_iters, dt, lr,
+            goal_weight, effort_weight, eps, use_damping, respect_effort_limits, eps_root,
+        )
+    if robot.dtype != torch.float32:
+        raise TypeError(f"dyn_solve is float32 only; got {robot.dtype}")
+    for name, x in named:
+        _check_cuda(x, name)
+    tree = tree_struct(robot, StepFlags(dt, use_damping))
+    ch = chain_struct(robot, ee_link_idx)
+    c = solve_constants(robot.dtype, H, n_iters, lr, goal_weight, eps, eps_root, effort_weight, D)
+    params = _DynSolveParams(
+        H=H, n_iters=n_iters, precond=int(H0 is not None), effort=int(respect_effort_limits),
+        **{k: c[k] for k in ("cgoal_w", "ceff_w", "gpe_w", "geff_w", "b1", "b2", "omb1",
+                             "omb2", "eps", "eps_root")},
+    )
+    dev = q0T.device
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    tau_out, a, m, v, tau_s, qs, qds = (new(H, D, B) for _ in range(7))
+    ps = new(H, 3, B)
+    costs = new(n_iters + 1, B)
+    if B:
+        bc = torch.from_numpy(c["bc"]).to(dev)
+        ptrs = (q0T, qd0T, tau_refT, goalT, aT0)
+        _launch_dyn(
+            "dyn_solve_f32",
+            (ctypes.byref(tree), ctypes.byref(ch), ctypes.byref(params),
+             *(x.data_ptr() for x in ptrs), None if H0 is None else H0.data_ptr(),
+             bc.data_ptr(), tau_out.data_ptr(), costs.data_ptr(),
+             *(x.data_ptr() for x in (a, m, v, tau_s, qs, qds, ps)), B),
+            dev,
+        )
+        dynamic_adam_solve.launches += 1
+    return tau_out, costs
+
+
+dynamic_adam_solve.launches = 0

@@ -1,1 +1,1 @@
-"""Kinematic trajectory optimization and MPC."""
+"""Trajectory optimization and MPC: rollouts, costs and Adam solvers, kinematic and torque-space."""

@@ -1,9 +1,10 @@
-"""Kinematic rollouts: clamped joint-delta integration and the ee trajectory.
+"""Rollouts: clamped joint-delta integration with the ee trajectory
+(kinematic), and semi-implicit Euler through the forward dynamics (dynamic).
 
-PyTorch counterpart of the kinematic half of the JAX package's
-`trajopt/rollout.py`. Clipping is `torch.minimum(torch.maximum(x, lo), hi)`
-everywhere, never `torch.clamp`: like `jnp.clip` it passes a gradient of 0.5
-at an exact tie with a limit, where `torch.clamp` passes 1.
+PyTorch counterpart of the JAX package's `trajopt/rollout.py`. Clipping is
+`torch.minimum(torch.maximum(x, lo), hi)` everywhere, never `torch.clamp`:
+like `jnp.clip` it passes a gradient of 0.5 at an exact tie with a limit,
+where `torch.clamp` passes 1.
 """
 
 from __future__ import annotations
@@ -12,11 +13,98 @@ import torch
 
 from ..models.structs import RobotStruct
 from ..ops import kinematics as K
+from ..ops.dynamics_scalar import ldl_solve_scalar, mass_matrix_scalar, rnea_scalar
+
+
+def _clip(x, lo, hi):
+    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 def clip_to_limits(robot: RobotStruct, q: torch.Tensor) -> torch.Tensor:
     """Clamp joint positions (dof on the last axis) to the URDF limits."""
-    return torch.minimum(torch.maximum(q, robot.limit_lower), robot.limit_upper)
+    return _clip(q, robot.limit_lower, robot.limit_upper)
+
+
+def _positive_or_inf(x: torch.Tensor) -> torch.Tensor:
+    """A URDF bound, with non-positive (missing) entries meaning unbounded."""
+    return torch.where(x > 0, x, torch.full_like(x, float("inf")))
+
+
+def clip_to_effort(robot: RobotStruct, tau: torch.Tensor) -> torch.Tensor:
+    """Clamp applied torques (dof on the last axis) to the URDF effort
+    limits, the box constraint of the torque-space solvers; non-positive
+    limits mean unbounded."""
+    e = _positive_or_inf(robot.limit_effort)
+    return _clip(tau, -e, e)
+
+
+def _effort_bound(robot: RobotStruct, n_batch_dims: int) -> torch.Tensor:
+    """Per-dof applied-torque bound for dof-major layouts, shaped [D, 1...]."""
+    e = _positive_or_inf(robot.limit_effort)
+    return e.reshape(e.shape + (1,) * n_batch_dims)
+
+
+def _velocity_bound(robot: RobotStruct, n_batch_dims: int) -> torch.Tensor:
+    """Per-dof velocity clamp of the dynamic rollouts, shaped [D, 1...]: it
+    keeps every scenario of a large batch inside the integrator's stable
+    region. Non-positive limits mean unbounded."""
+    v = _positive_or_inf(robot.limit_velocity)
+    return v.reshape(v.shape + (1,) * n_batch_dims)
+
+
+def fd_step_implicit_damping(
+    robot: RobotStruct,
+    q: torch.Tensor,  # [D] or dof-major [D, B...]
+    qd: torch.Tensor,
+    tau: torch.Tensor,
+    dt: float,
+    include_gravity: bool = True,
+    use_damping: bool = True,
+) -> torch.Tensor:
+    """Forward-dynamics acceleration with the joint damping taken implicitly:
+    (H + dt diag(d)) qdd = tau - nle_with_damping(q, qd), which keeps
+    semi-implicit Euler stable for low-inertia damped joints."""
+    nle = rnea_scalar(
+        robot, q, qd, torch.zeros_like(q),
+        include_gravity=include_gravity, use_damping=use_damping,
+    )
+    H = mass_matrix_scalar(robot, q)
+    if use_damping:
+        idx = torch.arange(robot.n_dofs, device=q.device)
+        damp = robot.damping.reshape(robot.damping.shape + (1,) * (q.dim() - 1))
+        H = H.index_put((idx, idx), H[idx, idx] + dt * damp)
+    return ldl_solve_scalar(H, tau - nle)
+
+
+def dynamic_rollout_dof_major(
+    robot: RobotStruct,
+    q0T: torch.Tensor,  # [D, B]
+    qd0T: torch.Tensor,  # [D, B]
+    tauT: torch.Tensor,  # [H, D, B]
+    dt: float,
+    include_gravity: bool = True,
+    use_damping: bool = True,
+    respect_effort_limits: bool = False,
+):
+    """Integrate B scenarios through H semi-implicit Euler steps of the
+    forward dynamics (`fd_step_implicit_damping`), with the URDF velocity
+    clamp after each step and, with `respect_effort_limits`, the effort box
+    on each torque first. Returns (qs, qds), each [H, D, B]: the state after
+    each step."""
+    vmax = _velocity_bound(robot, q0T.dim() - 1)
+    emax = _effort_bound(robot, q0T.dim() - 1) if respect_effort_limits else None
+    q, qd, qs, qds = q0T, qd0T, [], []
+    for tau_t in tauT:
+        if emax is not None:
+            tau_t = _clip(tau_t, -emax, emax)
+        qdd = fd_step_implicit_damping(
+            robot, q, qd, tau_t, dt, include_gravity=include_gravity, use_damping=use_damping
+        )
+        qd = _clip(qd + dt * qdd, -vmax, vmax)
+        q = q + dt * qd
+        qs.append(q)
+        qds.append(qd)
+    return torch.stack(qs), torch.stack(qds)
 
 
 def clamp_affine_combine(e1, e2):
@@ -87,7 +175,7 @@ def clamp_affine_q_traj(q_start, u, lo, hi, axis: int = 0):
         (u, torch.broadcast_to(lo, u.shape), torch.broadcast_to(hi, u.shape)),
         axis,
     )
-    q_tail = torch.minimum(torch.maximum(q_start_h + A, Bnd), Cnd)
+    q_tail = _clip(q_start_h + A, Bnd, Cnd)
     return torch.cat([q_start_h, q_tail], dim=axis)
 
 

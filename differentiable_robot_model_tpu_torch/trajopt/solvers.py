@@ -1,7 +1,8 @@
-"""Kinematic trajectory optimization: Adam on joint-delta action sequences.
+"""Trajectory optimization: Adam on joint-delta action sequences
+(kinematic) and on torque sequences through the forward dynamics (dynamic).
 
-PyTorch counterpart of the kinematic solvers in the JAX package's
-`trajopt/solvers.py`. Adam follows optax's `adam(lr, eps=eps,
+PyTorch counterpart of the kinematic and torque-space solvers in the JAX
+package's `trajopt/solvers.py`. Adam follows optax's `adam(lr, eps=eps,
 eps_root=1e-8)`: a -= lr * m_hat / (sqrt(v_hat + eps_root) + eps).
 `torch.optim.Adam` has no eps_root, and here eps does real work: it damps
 the steps along action directions that barely move the end effector.
@@ -13,6 +14,13 @@ the steps along action directions that barely move the end effector.
 - "fused": the whole solve in one launch of kernel K3.
 "auto" picks "fused" for a CUDA float32 robot with horizon >= 2 and
 n_iters >= 1, "kernel" for any other CUDA case, "scalar" on the CPU.
+
+`solve_dynamic_adam_batch` has three likewise, named as the JAX package
+names them: "scan" (plain torch with autograd), "kernel" (the rollout
+kernel pair once per Adam iteration, JAX's "pallas") and "fused" (kernel
+K9, the whole solve in one launch); "auto" picks "fused" for a CUDA
+float32 robot with n_iters >= 1, "kernel" for other CUDA robots and "scan"
+on the CPU.
 """
 
 from __future__ import annotations
@@ -23,12 +31,19 @@ import torch
 
 from ..models.structs import RobotStruct
 from ..ops.kernels.fk import fk_position_dof_major
-from ..ops.kernels.solver import kinematic_adam_solve
+from ..ops.kernels.rollout import dynamic_rollout_ee
+from ..ops.kernels.solver import (
+    dyn_prologue,
+    dyn_prologue_reference,
+    dynamic_adam_solve,
+    kinematic_adam_solve,
+)
 from ..ops.kinematics import fk_link_position_dof_first
 from .costs import dense_goal_cost
-from .rollout import clamp_affine_q_traj, kinematic_rollout
+from .rollout import _clip, _effort_bound, clamp_affine_q_traj, dynamic_rollout_dof_major, kinematic_rollout
 
 ENGINES = ("auto", "scalar", "kernel", "fused")
+DYNAMIC_ENGINES = ("auto", "scan", "kernel", "fused")
 
 _B1 = 0.9
 _B2 = 0.999
@@ -185,3 +200,113 @@ def solve_kinematic_adam_batch(
         _, final_cost = cost_fn(aT)
     history = torch.stack(costs) if costs else final_cost.new_zeros((0, B))
     return BatchTrajOptResult(aT.permute(2, 1, 0), final_cost, history)
+
+
+def resolve_dynamic_engine(rollout_impl: str, robot: RobotStruct, n_iters: int) -> str:
+    """The engine `rollout_impl` names, with "auto" resolved for this robot."""
+    if rollout_impl not in DYNAMIC_ENGINES:
+        raise ValueError(f"rollout_impl must be one of {DYNAMIC_ENGINES}, got {rollout_impl!r}")
+    if rollout_impl != "auto":
+        return rollout_impl
+    if robot.device.type != "cuda":
+        return "scan"
+    if robot.dtype == torch.float32 and n_iters >= 1:
+        return "fused"
+    return "kernel"
+
+
+def solve_dynamic_adam_batch(
+    robot: RobotStruct,
+    q0: torch.Tensor,  # [B, D]
+    qd0: torch.Tensor,  # [B, D]
+    goal_ee_pos: torch.Tensor,  # [B, 3]
+    ee_link_idx: int,
+    horizon: int,
+    dt: float = 0.02,
+    n_iters: int = 10,
+    lr: float = 0.5,
+    goal_weight: float = 10.0,
+    effort_weight: float = 1e-4,
+    eps: float = 1e-8,
+    init_actions: torch.Tensor | None = None,  # [B, H, D] absolute torques
+    use_damping: bool = True,
+    precondition: bool = True,
+    respect_effort_limits: bool = False,
+    rollout_impl: str = "auto",
+) -> BatchTrajOptResult:
+    """Batched torque-space MPC solve: Adam on H torque deltas per scenario
+    through the semi-implicit Euler forward dynamics and the ee FK.
+
+    The actions are acceleration-unit deltas a with tau = tau_ref + H0 a
+    (tau_ref the gravity torques and H0 the mass matrix at q0: the
+    computed-torque preconditioner; with `precondition=False`, tau = tau_ref
+    + a). The cost per scenario is the mean over 3 H terms of
+    (goal_weight (p - goal))^2 plus effort_weight times the mean of the
+    squared torque deltas (unclipped). With `respect_effort_limits` every
+    torque is clipped to the URDF effort box before it is applied.
+    `init_actions` are absolute torques [B, H, D], mapped back to deltas
+    through H0. Returns the applied torques [B, H, D] (clipped with
+    `respect_effort_limits`), the final costs and the cost before each
+    update. Every tensor inside is dof-major ([D, ..., B]).
+    """
+    B, D = q0.shape
+    H = horizon
+    engine = resolve_dynamic_engine(rollout_impl, robot, n_iters)
+    q0T = q0.T.contiguous()
+    qd0T = qd0.T.contiguous()
+    goalT = goal_ee_pos.T.contiguous()
+    init_tauT = None
+    if init_actions is not None:
+        init_tauT = init_actions.detach().to(robot.dtype).permute(1, 2, 0).contiguous()
+    prologue = dyn_prologue_reference if engine == "scan" else dyn_prologue
+    tau_refT, H0, aT0 = prologue(robot, q0T, init_tauT, H, precondition)
+
+    if engine == "fused":
+        tau_out, costs_all = dynamic_adam_solve(
+            robot, q0T, qd0T, goalT, tau_refT, H0, aT0, ee_link_idx,
+            n_iters=n_iters, dt=dt, lr=lr, goal_weight=goal_weight,
+            effort_weight=effort_weight, eps=eps, use_damping=use_damping,
+            respect_effort_limits=respect_effort_limits,
+        )  # [H, D, B], [n_iters+1, B]
+        return BatchTrajOptResult(tau_out.permute(2, 0, 1), costs_all[n_iters], costs_all[:n_iters])
+
+    emax = _effort_bound(robot, 1) if respect_effort_limits else None
+    if engine == "kernel":
+        def ee_traj(tauT):  # [H, D, B] -> [H, 3, B]
+            return dynamic_rollout_ee(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping=use_damping)[2]
+    else:
+        def ee_traj(tauT):
+            qs, _ = dynamic_rollout_dof_major(robot, q0T, qd0T, tauT, dt, use_damping=use_damping)
+            p = fk_link_position_dof_first(robot, qs.transpose(0, 1).reshape(D, H * B), ee_link_idx)
+            return p.reshape(3, H, B).transpose(0, 1)
+
+    def torque_deltas(aT):
+        return aT if H0 is None else torch.einsum("deb,heb->hdb", H0, aT)
+
+    def applied(dtau):
+        tauT = tau_refT + dtau
+        return tauT if emax is None else _clip(tauT, -emax, emax)
+
+    def cost_fn(aT):  # aT: [H, D, B]
+        dtau = torque_deltas(aT)
+        err = goal_weight * (ee_traj(applied(dtau)) - goalT)
+        cost_b = torch.mean(err * err, dim=(0, 1)) + effort_weight * torch.mean(dtau * dtau, dim=(0, 1))
+        return torch.sum(cost_b), cost_b
+
+    aT = aT0.detach().clone()
+    m = torch.zeros_like(aT)
+    v = torch.zeros_like(aT)
+    costs = []
+    for t in range(1, n_iters + 1):
+        with torch.enable_grad():
+            a = aT.requires_grad_(True)
+            total, cost_b = cost_fn(a)
+            (g,) = torch.autograd.grad(total, a)
+        costs.append(cost_b.detach())
+        with torch.no_grad():
+            aT, m, v = _adam_update(aT.detach(), g, m, v, t, lr, eps)
+    with torch.no_grad():
+        _, final_cost = cost_fn(aT)
+        actions = applied(torque_deltas(aT))
+    history = torch.stack(costs) if costs else final_cost.new_zeros((0, B))
+    return BatchTrajOptResult(actions.permute(2, 0, 1), final_cost, history)
