@@ -5,9 +5,12 @@ Same layout as the JAX package (`models/`, `ops/`, `trajopt/`), with the
 hand-written CUDA kernels' wrappers in `ops/kernels/` and their sources in
 `csrc/`. The port imports neither JAX nor the JAX package; it ships its own
 copies of the bundled URDFs in `robot_data/`. So far it serves the
-kinematic MPC path (`trajopt.mpc.make_mpc_step_batch`) and the torque-space
+kinematic MPC path (`trajopt.mpc.make_mpc_step_batch`), the torque-space
 MPC path (`trajopt.mpc.make_dynamic_mpc_step_batch`, `run_closed_loop`),
-with the scalar dynamics under the latter in `ops/dynamics_scalar.py`.
+with the scalar dynamics under the latter in `ops/dynamics_scalar.py`, and
+the robot-model API (`DifferentiableRobotModel.compute_*`, inverse
+dynamics on the RNEA kernel) with the lie, spatial, kinematics and
+dynamics ops under it.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`, and raise
 when no CUDA device exists. Float32 work runs in full float32: the port's

@@ -459,6 +459,36 @@ __device__ void drm_fd_step(const Tree<T>& tr, const T* q, const T* qd, const T*
   }
 }
 
+// (∂RNEA(q, qd, qdd)/∂(q, qd))ᵀ w into jac[2D]: jac[k] = Σ_d w_d ∂τ_d/∂q_k
+// for k < D and Σ_d w_d ∂τ_d/∂qd_{k-D} for k >= D, with the tree's gravity
+// and damping, from 2D forward sweeps of the RNEA on dual numbers, one
+// tangent direction each. All 2D partials go into the one array `jac`: with
+// the q and qd partials written into two arrays of the caller instead, nvcc
+// 12.9 -O3 gave one of them the local-memory slot of this loop's force
+// accumulator, which overwrote it (tools/probe_rnea_vjp_layout.py).
+// `__noinline__` would keep the loop's arrays in a frame of their own, at a
+// cost of 5-10% on K6, K8 and K9; chip_smoke.py instead holds every build of
+// every user of this function against its plain version.
+template <typename T, int NL, int ND>
+__device__ void drm_rnea_vjp(const Tree<T>& tr, const T* q, const T* qd, const T* qdd, const T* w,
+                             T* jac) {
+  const int D = tr.D;
+  for (int k = 0; k < 2 * D; ++k) {
+    Dual<T> qv[ND], qdv[ND], qddv[ND], tauv[ND];
+    for (int d = 0; d < D; ++d) {
+      qv[d] = Dual<T>(q[d], k == d ? T(1) : T(0));
+      qdv[d] = Dual<T>(qd[d], k == D + d ? T(1) : T(0));
+      qddv[d] = Dual<T>(qdd[d]);
+    }
+    Dual<T> Rl[NL][9], tl[NL][3];
+    drm_local_all<Dual<T>, T, NL>(tr, qv, Rl, tl);
+    drm_rnea<Dual<T>, T, NL>(tr, Rl, tl, qdv, qddv, tauv);
+    T j = T(0);
+    for (int d = 0; d < D; ++d) j = j + w[d] * tauv[d].t;
+    jac[k] = j;
+  }
+}
+
 // The adjoint of `drm_fd_step` at (q, qd, tau) for the cotangents gqn on q'
 // and gqdn on qd' (gqd may alias gqdn): lam = τ̄, gq = q̄, gqd = q̄d.
 template <typename T, int NL, int ND>
@@ -473,26 +503,11 @@ __device__ void drm_fd_step_adjoint(const Tree<T>& tr, const T* q, const T* qd, 
     rhs[d] = tr.dt * gx[d];
   }
   drm_ldl_solve<T, ND>(Lf, dg, D, rhs, lam);
+  // q̄ = ḡq' - (∂RNEA(q, qd, qdd*)/∂q)ᵀ λ, q̄d = x̄ - (∂RNEA/∂qd)ᵀ λ.
+  T jac[2 * ND];
+  drm_rnea_vjp<T, NL, ND>(tr, q, qd, qdd, lam, jac);
   for (int d = 0; d < D; ++d) {
-    gq[d] = gqn[d];
-    gqd[d] = gx[d];
-  }
-  // (∂RNEA(q, qd, qdd*)/∂(q, qd))ᵀ λ, one tangent direction per sweep.
-  for (int k = 0; k < 2 * D; ++k) {
-    Dual<T> qv[ND], qdv[ND], qddv[ND], tauv[ND];
-    for (int d = 0; d < D; ++d) {
-      qv[d] = Dual<T>(q[d], k == d ? T(1) : T(0));
-      qdv[d] = Dual<T>(qd[d], k == D + d ? T(1) : T(0));
-      qddv[d] = Dual<T>(qdd[d]);
-    }
-    Dual<T> Rl[NL][9], tl[NL][3];
-    drm_local_all<Dual<T>, T, NL>(tr, qv, Rl, tl);
-    drm_rnea<Dual<T>, T, NL>(tr, Rl, tl, qdv, qddv, tauv);
-    T j = T(0);
-    for (int d = 0; d < D; ++d) j = j + lam[d] * tauv[d].t;
-    if (k < D)
-      gq[k] = gq[k] - j;
-    else
-      gqd[k - D] = gqd[k - D] - j;
+    gq[d] = gqn[d] - jac[d];
+    gqd[d] = gx[d] - jac[D + d];
   }
 }

@@ -1,0 +1,154 @@
+// Kernels rnea_fwd and rnea_bwd: batched inverse dynamics by the recursive
+// Newton-Euler algorithm (RNEA), and its vector-Jacobian product.
+//
+// rnea_fwd replaces the JAX package's ops/pallas/rnea.py `_kernel`: both
+// RNEA sweeps of every scenario in one launch, with the flags for gravity
+// (the tree's `gravity`, 0 when it is off) and joint damping (d * qd added to
+// the torques). Its VJP is XLA's reverse mode of the scalar path there
+// (`_scalar_vjp`); rnea_bwd is its counterpart here, written out:
+// q̄ = (∂τ/∂q)ᵀ ḡ and q̄d = (∂τ/∂qd)ᵀ ḡ (damping included) from 2D forward
+// sweeps of the same RNEA code on dual numbers (dyn_step.cuh
+// `drm_rnea_vjp`), and q̄dd = M(q) ḡ from the composite-rigid-body
+// mass matrix, since ∂τ/∂qdd = M(q) is symmetric.
+//
+// Layout as at the model API, batch-major: q, qd, qdd, g, tau and the
+// cotangents are [B, D], one thread per scenario reading its own row. The
+// JAX wrapper transposes to dof-major tiles first; here no transpose is
+// made: a warp's loads of one dof are D entries apart, and the 32 rows it
+// reads (32 * D values) are consecutive, so L1 serves the other dofs.
+//
+// Bound on the H100: per scenario rnea_fwd moves 16 D bytes (float32) and
+// needs about a thousand FP32 operations for iiwa once the robot's
+// constants are folded, so the bytes and the operations bound it about
+// equally (chip_smoke.py counts both); rnea_bwd needs a reverse RNEA sweep
+// more, so operations bound it. With one thread per scenario, each thread's
+// dependent chain through the link sweeps, its per-link state in local
+// memory, sets the time; at B=65536 there are 16 warps per SM to hide it.
+
+#include <cstdint>
+
+#include "dyn_step.cuh"
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ x, int64_t row, int D, T* out) {
+  for (int d = 0; d < D; ++d) out[d] = x[row + d];
+}
+
+template <typename T, int NL, int ND>
+__global__ void rnea_fwd_kernel(const __grid_constant__ Tree<T> tr, const T* __restrict__ q,
+                                const T* __restrict__ qd, const T* __restrict__ qdd,
+                                T* __restrict__ tau, int64_t B) {
+  const int64_t b = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int D = tr.D;
+  const int64_t row = b * D;
+  T qv[ND], qdv[ND], qddv[ND], tv[ND];
+  load_row(q, row, D, qv);
+  load_row(qd, row, D, qdv);
+  load_row(qdd, row, D, qddv);
+  T Rl[NL][9], tl[NL][3];
+  drm_local_all<T, T, NL>(tr, qv, Rl, tl);
+  drm_rnea<T, T, NL>(tr, Rl, tl, qdv, qddv, tv);
+  for (int d = 0; d < D; ++d) tau[row + d] = tv[d];
+}
+
+template <typename T, int NL, int ND>
+__global__ void rnea_bwd_kernel(const __grid_constant__ Tree<T> tr, const T* __restrict__ q,
+                                const T* __restrict__ qd, const T* __restrict__ qdd,
+                                const T* __restrict__ g, T* __restrict__ gq, T* __restrict__ gqd,
+                                T* __restrict__ gqdd, int64_t B) {
+  const int64_t b = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int D = tr.D;
+  const int64_t row = b * D;
+  T qv[ND], qdv[ND], qddv[ND], gv[ND];
+  load_row(q, row, D, qv);
+  load_row(qd, row, D, qdv);
+  load_row(qdd, row, D, qddv);
+  load_row(g, row, D, gv);
+  {
+    // q̄dd = M(q) ḡ on the packed lower triangle.
+    T Rl[NL][9], tl[NL][3], Hm[ND * (ND + 1) / 2];
+    drm_local_all<T, T, NL>(tr, qv, Rl, tl);
+    drm_crb<T, NL, ND>(tr, Rl, tl, Hm);
+    for (int i = 0; i < D; ++i) {
+      T s = T(0);
+      for (int j = 0; j < D; ++j) s = s + Hm[i >= j ? drm_tri(i, j) : drm_tri(j, i)] * gv[j];
+      gqdd[row + i] = s;
+    }
+  }
+  T jac[2 * ND];
+  drm_rnea_vjp<T, NL, ND>(tr, qv, qdv, qddv, gv, jac);
+  for (int d = 0; d < D; ++d) {
+    gq[row + d] = jac[d];
+    gqd[row + d] = jac[D + d];
+  }
+}
+
+constexpr int kThreads = 128;
+
+inline unsigned blocks_for(int64_t B) { return unsigned((B + kThreads - 1) / kThreads); }
+
+template <typename T>
+bool small_tree(const Tree<T>* tr) { return tr->n <= 16 && tr->D <= 16; }
+
+template <typename T>
+int launch_fwd(const Tree<T>* tr, const T* q, const T* qd, const T* qdd, T* tau, int64_t B,
+               void* stream) {
+  auto s = (cudaStream_t)stream;
+  if (small_tree(tr))
+    rnea_fwd_kernel<T, 16, 16><<<blocks_for(B), kThreads, 0, s>>>(*tr, q, qd, qdd, tau, B);
+  else
+    rnea_fwd_kernel<T, 32, 32><<<blocks_for(B), kThreads, 0, s>>>(*tr, q, qd, qdd, tau, B);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const Tree<T>* tr, const T* q, const T* qd, const T* qdd, const T* g, T* gq,
+               T* gqd, T* gqdd, int64_t B, void* stream) {
+  auto s = (cudaStream_t)stream;
+  if (small_tree(tr))
+    rnea_bwd_kernel<T, 16, 16><<<blocks_for(B), kThreads, 0, s>>>(*tr, q, qd, qdd, g, gq, gqd,
+                                                                  gqdd, B);
+  else
+    rnea_bwd_kernel<T, 32, 32><<<blocks_for(B), kThreads, 0, s>>>(*tr, q, qd, qdd, g, gq, gqd,
+                                                                  gqdd, B);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// sizeof(Tree<float>), sizeof(Tree<double>), DRM_MAX_LINKS: the Python side
+// checks its ctypes mirror against these.
+void rnea_layout(int64_t* out) {
+  out[0] = sizeof(Tree<float>);
+  out[1] = sizeof(Tree<double>);
+  out[2] = DRM_MAX_LINKS;
+}
+
+int rnea_fwd_f32(const Tree<float>* tr, const float* q, const float* qd, const float* qdd,
+                 float* tau, int64_t B, void* stream) {
+  return launch_fwd(tr, q, qd, qdd, tau, B, stream);
+}
+
+int rnea_fwd_f64(const Tree<double>* tr, const double* q, const double* qd, const double* qdd,
+                 double* tau, int64_t B, void* stream) {
+  return launch_fwd(tr, q, qd, qdd, tau, B, stream);
+}
+
+int rnea_bwd_f32(const Tree<float>* tr, const float* q, const float* qd, const float* qdd,
+                 const float* g, float* gq, float* gqd, float* gqdd, int64_t B, void* stream) {
+  return launch_bwd(tr, q, qd, qdd, g, gq, gqd, gqdd, B, stream);
+}
+
+int rnea_bwd_f64(const Tree<double>* tr, const double* q, const double* qd, const double* qdd,
+                 const double* g, double* gq, double* gqd, double* gqdd, int64_t B,
+                 void* stream) {
+  return launch_bwd(tr, q, qd, qdd, g, gq, gqd, gqdd, B, stream);
+}
+
+}  // extern "C"

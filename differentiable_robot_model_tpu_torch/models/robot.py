@@ -1,20 +1,42 @@
-"""High-level robot model API (the forward-kinematics part so far).
+"""High-level robot model API.
 
 PyTorch counterpart of the JAX package's `models/robot.py`:
 `DifferentiableRobotModel` is an `nn.Module` whose buffers are the
-RobotStruct's tensors, so `.to()` moves the whole robot. Methods accept
-unbatched [D] or batched [..., D] inputs.
+RobotStruct's tensors, so `.to()` moves the whole robot. Every compute_*
+method accepts unbatched [D] or batched [..., D] inputs (cast to the model's
+dtype and moved to its device), runs on the flattened batch and restores
+the batch shape.
+
+Inverse dynamics (`compute_inverse_dynamics`, `compute_non_linear_effects`)
+has two engines, `id_impl`: "kernel" runs the RNEA kernel K4
+(ops/kernels/rnea.py; its gradient the kernel `rnea_bwd`) on a CUDA tensor
+and its plain version on a CPU one; "scalar" runs the scalar RNEA in torch
+ops, differentiable w.r.t. the robot too; "auto" is "kernel" on CUDA, at
+any batch, and "scalar" elsewhere. The other methods run PyTorch ops on the
+model's device, as the JAX package runs them in XLA: FK by the scalar
+topological sweep (or, with `recursive=True`, by composing the local
+transforms), the Jacobian, the CRB mass matrix, and forward dynamics by the
+CRB solve or the articulated-body algorithm.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
 
-from ..ops.kinematics import fk_world_scalar
+from ..ops.dynamics import aba, forward_dynamics_crb
+from ..ops.dynamics_scalar import mass_matrix_scalar, rnea_scalar
+from ..ops.kernels.rnea import rnea
+from ..ops.kinematics import (
+    body_velocities,
+    fk_world,
+    fk_world_scalar,
+    link_jacobian,
+    world_joint_subspaces,
+)
 from ..ops.lie import matrix_to_quaternion
 from .structs import ARRAY_FIELDS, RobotStruct, resolve_device
 from .urdf import robot_struct_from_urdf
@@ -22,6 +44,17 @@ from .urdf import robot_struct_from_urdf
 robot_description_folder = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "robot_data")
 )
+
+ID_IMPLS = ("auto", "scalar", "kernel")
+
+
+class KinematicState(NamedTuple):
+    """World-frame kinematic state of all links (stacked over links)."""
+
+    rot: torch.Tensor  # [..., L, 3, 3] link world rotations
+    pos: torch.Tensor  # [..., L, 3] link world positions
+    subspace: torch.Tensor  # [..., L, 6] world joint motion subspaces
+    vel: torch.Tensor  # [..., L, 6] world-origin spatial velocities
 
 
 class DifferentiableRobotModel(nn.Module):
@@ -40,24 +73,137 @@ class DifferentiableRobotModel(nn.Module):
 
     @property
     def struct(self) -> RobotStruct:
-        """The robot as a RobotStruct over this module's current buffers."""
-        return RobotStruct(**{f: getattr(self, f) for f in ARRAY_FIELDS}, **self._static)
+        """The robot as a RobotStruct over this module's current buffers: the
+        same struct while the buffers stay the same tensors (`.to()` replaces
+        them), so what the kernels derive from it on the host, read from the
+        device once, is kept between calls until a buffer is written in place
+        (`RobotStruct.memo`)."""
+        arrays = {f: getattr(self, f) for f in ARRAY_FIELDS}
+        cached = self.__dict__.get("_struct_cache")
+        if cached is None or any(cached.arrays()[f] is not a for f, a in arrays.items()):
+            cached = self.__dict__["_struct_cache"] = RobotStruct(**arrays, **self._static)
+        return cached
 
     @property
     def n_dofs(self) -> int:
         return len(self._static["dof_links"])
 
+    # -- input normalization --------------------------------------------
+    def _norm(self, *arrays):
+        """Each input as a tensor of the model's dtype on its device,
+        flattened to [N, D]; the batch shapes must agree."""
+        dtype, device = self.trans.dtype, self.trans.device
+        arrs = [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
+        batch_shape = arrs[0].shape[:-1]
+        for a in arrs:
+            assert a.shape[:-1] == batch_shape, "Batch size mismatch between inputs."
+        return [a.reshape(-1, a.shape[-1]) for a in arrs], batch_shape
+
+    @staticmethod
+    def _denorm(x, batch_shape):
+        return x.reshape(batch_shape + x.shape[1:])
+
+    # -- kinematics --------------------------------------------------------
+    def update_kinematic_state(self, q, qd) -> KinematicState:
+        """World poses, joint subspaces and spatial velocities of all links,
+        returned rather than stored."""
+        (q2, qd2), bs = self._norm(q, qd)
+        s = self.struct
+        R, p = fk_world_scalar(s, q2)
+        S = world_joint_subspaces(s, R, p)
+        V = body_velocities(s, S, qd2)
+        return KinematicState(*(self._denorm(x, bs) for x in (R, p, S, V)))
+
     def compute_forward_kinematics(
-        self, q, link_name: str
+        self, q, link_name: str, recursive: bool = False
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """World position and orientation (quaternion x, y, z, w) of one link
-        for q [..., D]."""
+        """World position and orientation (quaternion x, y, z, w) of one link.
+        `recursive=True` composes the local transforms by pointer doubling
+        instead of the scalar sweep; both give the same poses."""
+        (q2,), bs = self._norm(q)
         s = self.struct
         idx = s.link_index(link_name)
-        q = torch.as_tensor(q, dtype=s.dtype, device=s.device)
-        R, p = fk_world_scalar(s, q)
-        return p[..., idx, :], matrix_to_quaternion(R[..., idx, :, :])
+        R, p = (fk_world if recursive else fk_world_scalar)(s, q2)
+        return self._denorm(p[:, idx], bs), self._denorm(matrix_to_quaternion(R[:, idx]), bs)
 
+    def compute_forward_kinematics_all_links(
+        self, q
+    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """{link name: (position, quaternion)} for every link."""
+        (q2,), bs = self._norm(q)
+        s = self.struct
+        R, p = fk_world_scalar(s, q2)
+        quat = matrix_to_quaternion(R)
+        return {
+            ln: (self._denorm(p[:, i], bs), self._denorm(quat[:, i], bs))
+            for i, ln in enumerate(s.link_names)
+        }
+
+    def compute_endeffector_jacobian(
+        self, q, link_name: str
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Geometric Jacobian (linear, angular) of one link: [..., 3, D] each."""
+        (q2,), bs = self._norm(q)
+        s = self.struct
+        lin, ang = link_jacobian(s, q2, s.link_index(link_name))
+        return self._denorm(lin, bs), self._denorm(ang, bs)
+
+    # -- dynamics ----------------------------------------------------------
+    def compute_inverse_dynamics(
+        self, q, qd, qdd_des, include_gravity: bool = True, use_damping: bool = True,
+        id_impl: str = "auto",
+    ) -> torch.Tensor:
+        """RNEA torques [..., D]. `id_impl`: "kernel" (K4, and `rnea_bwd` for
+        its gradient; the plain version on a CPU tensor), "scalar" (torch ops,
+        differentiable w.r.t. the robot too) or "auto" ("kernel" on CUDA)."""
+        if id_impl not in ID_IMPLS:
+            raise ValueError(f"id_impl must be 'auto', 'scalar', or 'kernel'; got {id_impl!r}")
+        (q2, qd2, qdd2), bs = self._norm(q, qd, qdd_des)
+        s = self.struct
+        if id_impl == "kernel" or (id_impl == "auto" and q2.device.type == "cuda"):
+            tau = rnea(s, q2.contiguous(), qd2.contiguous(), qdd2.contiguous(),
+                       include_gravity, use_damping)
+        else:
+            tau = rnea_scalar(s, q2.T, qd2.T, qdd2.T, include_gravity, use_damping).T
+        return self._denorm(tau, bs)
+
+    def compute_non_linear_effects(
+        self, q, qd, include_gravity: bool = True, use_damping: bool = True
+    ) -> torch.Tensor:
+        """Coriolis, centrifugal, gravity (and damping) torques: inverse
+        dynamics at qdd = 0."""
+        zeros = torch.zeros_like(torch.as_tensor(q, dtype=self.trans.dtype, device=self.trans.device))
+        return self.compute_inverse_dynamics(q, qd, zeros, include_gravity, use_damping)
+
+    def compute_lagrangian_inertia_matrix(
+        self, q, include_gravity: bool = True, use_damping: bool = True
+    ) -> torch.Tensor:
+        """Joint-space mass matrix H(q) [..., D, D]. The flags are taken for
+        the reference's signature; H depends on neither."""
+        del include_gravity, use_damping
+        (q2,), bs = self._norm(q)
+        H = mass_matrix_scalar(self.struct, q2.T)  # [D, D, N]
+        return self._denorm(H.permute(2, 0, 1), bs)
+
+    def compute_forward_dynamics(
+        self, q, qd, f, include_gravity: bool = True, use_damping: bool = False,
+        method: str = "crb",
+    ) -> torch.Tensor:
+        """Forward dynamics qdd [..., D] from applied torques f: method="crb"
+        solves with the mass matrix, any other runs the articulated-body
+        algorithm."""
+        (q2, qd2, f2), bs = self._norm(q, qd, f)
+        fn = forward_dynamics_crb if method == "crb" else aba
+        return self._denorm(fn(self.struct, q2, qd2, f2, include_gravity, use_damping), bs)
+
+    def compute_forward_dynamics_old(
+        self, q, qd, f, include_gravity: bool = True, use_damping: bool = True
+    ) -> torch.Tensor:
+        """The mass-matrix solve under its older name, whose use_damping
+        default is True."""
+        return self.compute_forward_dynamics(q, qd, f, include_gravity, use_damping, method="crb")
+
+    # -- misc --------------------------------------------------------------
     def get_joint_limits(self) -> List[Dict[str, float]]:
         host = self.struct.numpy()
         return [
@@ -72,6 +218,10 @@ class DifferentiableRobotModel(nn.Module):
 
     def get_link_names(self) -> List[str]:
         return list(self._static["link_names"])
+
+    def print_link_names(self) -> None:
+        for n in self.get_link_names():
+            print(n)
 
 
 def _bundled(rel_path: str) -> str:

@@ -10,10 +10,10 @@ dataclass:
   specialization hints (`axis_code`, `rpy_zero`, `trans_zero`) computed from
   the URDF constants when the struct is built.
 
-The arrays are treated as constants once built: the kernels' host-side
-constant preparation reads them from the device once per struct and caches
-what it derives (`RobotStruct.numpy`, `RobotStruct.memo`). Replace a struct
-(`dataclasses.replace`, `.to`) rather than mutating its tensors in place.
+The kernels' host-side constant preparation reads the arrays from the device
+once per struct and caches what it derives (`RobotStruct.numpy`,
+`RobotStruct.memo`); an in-place write to an array drops that cache, so the
+next kernel call reads the new values.
 """
 
 from __future__ import annotations
@@ -157,7 +157,14 @@ class RobotStruct:
         return RobotStruct(**moved, **self.static())
 
     def memo(self, key, build):
-        """`build()`, computed once per struct and key."""
+        """`build()`, computed once per struct and key, and again after any
+        array was written in place (`copy_`, `zero_`, `load_state_dict`) or
+        given new storage: every cached value is keyed on the arrays'
+        version counters and data pointers."""
+        stamp = tuple((a._version, a.data_ptr()) for a in self.arrays().values())
+        if self._cache.get("stamp") != stamp:
+            self._cache.clear()
+            self._cache["stamp"] = stamp
         if key not in self._cache:
             self._cache[key] = build()
         return self._cache[key]

@@ -1,0 +1,185 @@
+"""Batched inverse dynamics: kernel K4 `rnea_fwd`, its VJP kernel `rnea_bwd`
+(csrc/rnea.cu), their plain PyTorch versions, and the autograd entry `rnea`.
+
+Replaces the JAX package's ops/pallas/rnea.py `_kernel` (both RNEA sweeps of
+a scenario batch in one launch, with the gravity and damping flags). JAX
+takes its VJP from XLA (reverse mode of the scalar path, `_scalar_vjp`);
+here it is a kernel too: q̄ = (∂τ/∂q)ᵀ ḡ and q̄d = (∂τ/∂qd)ᵀ ḡ from 2D dual
+sweeps of the RNEA, as the rollout adjoints take them, and q̄dd = M(q) ḡ
+from the composite-rigid-body mass matrix.
+
+Layout: batch-major [B, D] for every operand, as the model API holds them;
+the kernels read each scenario's row in place (csrc/rnea.cu says why no
+transpose is made). Bound on the H100: per scenario rnea_fwd moves 16 D
+bytes (float32) and needs about a thousand FP32 operations for iiwa, so the
+bytes and the operations bound it about equally; rnea_bwd needs a reverse
+sweep more and is bound by operations. One thread per scenario.
+
+On a CUDA tensor the wrappers launch the kernel or raise; they take the
+plain version only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...models.structs import RobotStruct
+from ..dynamics_scalar import GRAVITY, mass_matrix_scalar, rnea_scalar
+from . import build
+from .fk import _check_cuda, _suffix
+from .rollout import (
+    MAX_LINKS,
+    TREE_CTYPES,
+    StepFlags,
+    check_constant_robot,
+    check_same,
+    rnea_jacobians,
+    tree_struct,
+)
+
+
+def _check_rnea(robot: RobotStruct, named):
+    """Every operand is [B, D] for the robot's D, in its dtype and on its
+    device. Returns (B, D)."""
+    D = robot.n_dofs
+    B = named[0][1].shape[0] if named[0][1].dim() == 2 else -1
+    for name, x in named:
+        if x.dim() != 2 or x.shape[1] != D or x.shape[0] != B:
+            raise ValueError(f"{name} must be [B, {D}] like q, got {tuple(x.shape)}")
+    check_same(robot, named)
+    return B, D
+
+
+# ---------------------------------------------------------------------------
+# The plain PyTorch versions.
+# ---------------------------------------------------------------------------
+
+
+def rnea_fwd_reference(robot: RobotStruct, q, qd, qdd, use_damping=True, include_gravity=True,
+                       gravity=GRAVITY):
+    """Plain version of `rnea_fwd`: the scalar RNEA (`rnea_scalar`) on
+    dof-major lanes, what the JAX package's scalar engine runs. [B, D] in
+    and out."""
+    _check_rnea(robot, (("q", q), ("qd", qd), ("qdd", qdd)))
+    return rnea_scalar(robot, q.T, qd.T, qdd.T, include_gravity, use_damping, gravity).T
+
+
+def rnea_bwd_reference(robot: RobotStruct, q, qd, qdd, g, use_damping=True, include_gravity=True,
+                       gravity=GRAVITY):
+    """Plain version of `rnea_bwd`: (q̄, q̄d, q̄dd) [B, D] each for the
+    cotangent g [B, D] on τ, from the RNEA partials by forward tangents
+    (`rnea_jacobians`) and the mass matrix (`mass_matrix_scalar`)."""
+    _, D = _check_rnea(robot, (("q", q), ("qd", qd), ("qdd", qdd), ("g", g)))
+    qT, gT = q.T, g.T
+    rows = rnea_jacobians(robot, qT, qd.T, qdd.T, use_damping, include_gravity, gravity)
+    jac = 0.0
+    for d in range(D):
+        jac = jac + gT[d] * rows[d]  # [2D, B]
+    gqdd = torch.einsum("ijb,jb->ib", mass_matrix_scalar(robot, qT), gT)
+    return jac[:D].T, jac[D:].T, gqdd.T
+
+
+# ---------------------------------------------------------------------------
+# The kernels.
+# ---------------------------------------------------------------------------
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    sizes = (ctypes.c_int64 * 3)()
+    lib.rnea_layout.argtypes = [ctypes.c_void_p]
+    lib.rnea_layout.restype = None
+    lib.rnea_layout(sizes)
+    expect = (
+        ctypes.sizeof(TREE_CTYPES[torch.float32]),
+        ctypes.sizeof(TREE_CTYPES[torch.float64]),
+        MAX_LINKS,
+    )
+    if tuple(sizes) != expect:
+        raise RuntimeError(f"csrc/rnea.cu layout {tuple(sizes)} != Python's {expect}")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    for name, n in (("rnea_fwd", 5), ("rnea_bwd", 8)):
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{sfx}")
+            fn.argtypes = [p] * n + [i64, p]
+            fn.restype = ctypes.c_int
+
+
+def _launch(name, robot, flags, ins, outs):
+    for n, x in ins:
+        _check_cuda(x, n)
+    tree = tree_struct(robot, flags)
+    B = ins[0][1].shape[0]
+    if B == 0:
+        return False
+    lib = build.load("rnea", _configure)
+    dev = ins[0][1].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, f"{name}_{_suffix(robot.dtype)}")(
+            ctypes.byref(tree), *(x.data_ptr() for _, x in ins), *(y.data_ptr() for y in outs),
+            B, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    return True
+
+
+def rnea_fwd(robot: RobotStruct, q, qd, qdd, use_damping=True, include_gravity=True,
+             gravity=GRAVITY):
+    """K4: the torques τ [B, D] that give qdd [B, D] at (q, qd) [B, D]."""
+    ins = (("q", q), ("qd", qd), ("qdd", qdd))
+    _check_rnea(robot, ins)
+    if q.device.type == "cpu":
+        return rnea_fwd_reference(robot, q, qd, qdd, use_damping, include_gravity, gravity)
+    tau = torch.empty_like(q)
+    if _launch("rnea_fwd", robot, StepFlags(0.0, use_damping, include_gravity, gravity), ins, (tau,)):
+        rnea_fwd.launches += 1
+    return tau
+
+
+rnea_fwd.launches = 0
+
+
+def rnea_bwd(robot: RobotStruct, q, qd, qdd, g, use_damping=True, include_gravity=True,
+             gravity=GRAVITY):
+    """The VJP of K4 for the cotangent g [B, D] on τ: (q̄, q̄d, q̄dd) [B, D]."""
+    ins = (("q", q), ("qd", qd), ("qdd", qdd), ("g", g))
+    _check_rnea(robot, ins)
+    if q.device.type == "cpu":
+        return rnea_bwd_reference(robot, q, qd, qdd, g, use_damping, include_gravity, gravity)
+    outs = (torch.empty_like(q), torch.empty_like(q), torch.empty_like(q))
+    if _launch("rnea_bwd", robot, StepFlags(0.0, use_damping, include_gravity, gravity), ins, outs):
+        rnea_bwd.launches += 1
+    return outs
+
+
+rnea_bwd.launches = 0
+
+
+class Rnea(torch.autograd.Function):
+    """`rnea_fwd` forward, `rnea_bwd` backward, w.r.t. (q, qd, qdd); the robot
+    is constant (robot gradients take the plain path, id_impl="scalar")."""
+
+    @staticmethod
+    def forward(ctx, q, qd, qdd, robot, flags):
+        check_constant_robot(robot)
+        ctx.save_for_backward(q, qd, qdd)
+        ctx.args = (robot, flags)
+        return rnea_fwd(robot, q, qd, qdd, flags.use_damping, flags.include_gravity, flags.gravity)
+
+    @staticmethod
+    def backward(ctx, g):
+        robot, flags = ctx.args
+        gq, gqd, gqdd = rnea_bwd(robot, *ctx.saved_tensors, g.contiguous(), flags.use_damping,
+                                 flags.include_gravity, flags.gravity)
+        return gq, gqd, gqdd, None, None
+
+
+def rnea(robot: RobotStruct, q, qd, qdd, include_gravity: bool = True, use_damping: bool = True,
+         gravity: float = GRAVITY):
+    """Batched inverse dynamics [B, D] -> [B, D] on K4, differentiable w.r.t.
+    (q, qd, qdd) through `rnea_bwd`: the counterpart of the JAX package's
+    `rnea_pallas`. Raises if a robot tensor the kernels read requires grad."""
+    return Rnea.apply(q, qd, qdd, robot, StepFlags(0.0, use_damping, include_gravity, gravity))

@@ -1,27 +1,34 @@
-"""The dynamic rollout with the end-effector trajectory: kernels
-`dyn_rollout_ee_fwd` and `dyn_rollout_ee_bwd` (csrc/dyn_rollout.cu), their
-plain PyTorch versions, and the autograd entry `dynamic_rollout_ee`.
+"""The dynamic rollouts: kernels `dyn_rollout_fwd` / `dyn_rollout_bwd` (the
+states only) and `dyn_rollout_ee_fwd` / `dyn_rollout_ee_bwd` (with the
+end-effector trajectory), all in csrc/dyn_rollout.cu, their plain PyTorch
+versions, and the autograd entries `dynamic_rollout` and
+`dynamic_rollout_ee`.
 
-Replaces the JAX package's ops/pallas/rollout.py `_fwd_ee_kernel` (H
-semi-implicit Euler forward-dynamics steps, each followed by the ee FK) and
-`_bwd_ee_kernel` (its adjoint from ee cotangents, by replay and `jax.vjp`
-of the step inside the kernel). CUDA has no `jax.vjp`, so the adjoint of a
-step is written out by the implicit-function identity (`StepReplay`):
-with Ĥ = M(q) + dt diag(d) and qdd* the step's acceleration,
+Replaces the JAX package's ops/pallas/rollout.py `_fwd_kernel` and
+`_fwd_ee_kernel` (H semi-implicit Euler forward-dynamics steps, the latter
+each followed by the ee FK) and `_bwd_kernel` / `_bwd_ee_kernel` (their
+adjoints, by replay and `jax.vjp` of the step inside the kernel). CUDA has
+no `jax.vjp`, so the adjoint of a step is written out by the
+implicit-function identity (`StepReplay`): with Ĥ = M(q) + dt diag(d) and
+qdd* the step's acceleration,
 
     x̄ = (ḡqd' + dt ḡq') * dclip(x),   λ = Ĥ⁻¹ (dt x̄),   τ̄ = λ,
     q̄ = ḡq' - (∂RNEA(q, qd, qdd*)/∂q)ᵀ λ,   q̄d = x̄ - (∂RNEA/∂qd)ᵀ λ,
 
-where ḡq' already holds J(q')ᵀ ḡp from the ee FK. The RNEA partials come
-from 2D forward-mode tangents (duals) through the RNEA sweeps.
+where ḡq' holds the cotangent on qs plus J(q')ᵀ ḡp from the ee FK, and ḡqd'
+the cotangent on qds. The RNEA partials come from 2D forward-mode tangents
+(duals) through the RNEA sweeps. The adjoint kernels take the cotangents on
+qs and qds each optionally, so every cotangent pattern JAX's custom VJPs
+accept runs on a kernel.
 
 Bound on the H100: per scenario and step the function needs one RNEA, one
-composite-rigid-body mass matrix, an LDL^T factor and solve and one chain
-FK (the adjoint: a replay of the step, one more solve, the J^T g sweep and
-the RNEA partials), a few thousand FP32 operations for iiwa over a few
-hundred bytes, so operations bound it. One thread per scenario runs the
-whole horizon with the state in registers and local memory; at B=4096 that
-is one warp per SM, so each thread's dependent chain sets the time.
+composite-rigid-body mass matrix, an LDL^T factor and solve (and one chain
+FK for the ee pair); the adjoint a replay of the step, one more solve, the
+RNEA partials (and the J^T g sweep): a few thousand FP32 operations for
+iiwa over a few hundred bytes, so operations bound it. One thread per
+scenario runs the whole horizon with the state in registers and local
+memory; at B=4096 that is one warp per SM, so each thread's dependent chain
+sets the time.
 
 On a CUDA tensor the wrappers launch the kernel or raise; they take the
 plain version only for tensors on the CPU.
@@ -36,7 +43,7 @@ import numpy as np
 import torch
 
 from ...models.structs import JOINT_FIXED, JOINT_PRISMATIC, JOINT_REVOLUTE, RobotStruct
-from ...trajopt.rollout import _velocity_bound, dynamic_rollout_dof_major
+from ...trajopt.rollout import _clip, _effort_bound, _velocity_bound, dynamic_rollout_dof_major
 from ..dynamics_scalar import (
     GRAVITY,
     _link_dof_map,
@@ -102,26 +109,40 @@ TREE_CTYPES = {
 
 @dataclasses.dataclass(frozen=True)
 class StepFlags:
-    dt: float
+    """What the dynamics kernels take besides the robot: the step dt (unused
+    by the RNEA kernels), joint damping on or off, and the base's upward
+    acceleration `gravity`, 0 where `include_gravity` is off."""
+
+    dt: float = 0.0
     use_damping: bool = True
+    include_gravity: bool = True
+    gravity: float = GRAVITY
 
 
-def tree_struct(robot: RobotStruct, flags: StepFlags):
-    """The by-value `Tree<T>` kernel argument: every link's constants (F from
-    cos/sin rounded to the dtype, axis, F@a, translation, mass, COM,
-    inertia) and per dof its damping, f(dt * damping) (the implicit-damping
-    diagonal, rounded as ops/pallas/rollout.py:276 rounds it), velocity and
-    effort bounds (inf where the URDF gives none), each rounded to the
-    struct's dtype. Built on the host once per struct and flags."""
-    if robot.dtype not in _NP_DTYPE:
-        raise TypeError(f"the dynamics kernels take float32 or float64 robots, not {robot.dtype}")
+def check_constant_robot(robot: RobotStruct) -> None:
+    """The dynamics kernels and their autograd entries treat the robot as
+    constant: raise if a tensor they read requires grad."""
     for f in ("trans", "rot_angles", "axis", "mass", "com", "inertia_com", "damping",
               "limit_velocity", "limit_effort"):
         if getattr(robot, f).requires_grad:
             raise ValueError(
                 f"robot.{f} requires grad: the dynamics kernels treat the robot as "
-                "constant; use rollout_impl='scan' to differentiate w.r.t. the robot"
+                "constant; differentiate w.r.t. the robot through the plain paths "
+                "(rollout_impl='scan', id_impl='scalar')"
             )
+
+
+def tree_struct(robot: RobotStruct, flags: StepFlags):
+    """The by-value `Tree<T>` kernel argument: every link's constants (F from
+    cos/sin rounded to the dtype, axis, F@a, translation, mass, COM,
+    inertia), the base's upward acceleration (`flags.gravity`, or 0 without
+    gravity) and per dof its damping, f(dt * damping) (the implicit-damping
+    diagonal, rounded as ops/pallas/rollout.py:276 rounds it), velocity and
+    effort bounds (inf where the URDF gives none), each rounded to the
+    struct's dtype. Built on the host once per struct and flags."""
+    if robot.dtype not in _NP_DTYPE:
+        raise TypeError(f"the dynamics kernels take float32 or float64 robots, not {robot.dtype}")
+    check_constant_robot(robot)
     return robot.memo(("tree", flags), lambda: _tree_struct(robot, flags))
 
 
@@ -139,7 +160,7 @@ def _tree_struct(robot: RobotStruct, flags: StepFlags):
     tr = TREE_CTYPES[robot.dtype]()
     tr.n, tr.D, tr.use_damping = L, D, int(flags.use_damping)
     tr.dt = r(flags.dt)
-    tr.gravity = r(GRAVITY)
+    tr.gravity = r(flags.gravity) if flags.include_gravity else 0.0
     for l in range(L):
         k = tr.link[l]
         k.parent, k.type, k.dof = robot.parent[l], robot.joint_types[l], ld.get(l, -1)
@@ -220,7 +241,8 @@ class _Dual:
     __rmul__ = __mul__
 
 
-def rnea_jacobians(robot: RobotStruct, q, qd, qdd, use_damping=True):
+def rnea_jacobians(robot: RobotStruct, q, qd, qdd, use_damping=True, include_gravity=True,
+                   gravity=GRAVITY):
     """Per dof d, the rows ∂RNEA_d(q, qd, qdd)/∂(q, qd) as [2D, lanes...]
     (entry k < D is ∂/∂q_k, entry D + k is ∂/∂qd_k), by 2D forward-mode
     tangents through the RNEA sweeps on dof-major lanes. `qdd` is a per-dof
@@ -242,7 +264,7 @@ def rnea_jacobians(robot: RobotStruct, q, qd, qdd, use_damping=True):
             c, s = torch.cos(x.v), torch.sin(x.v)
             cs_link[l] = (_Dual(c, -s * x.t), _Dual(s, c * x.t))
     Rl, tl = _local_transforms(robot, q_link, zero, cs_link)
-    gz = zero + GRAVITY
+    gz = zero + gravity if include_gravity else zero
     tau_link = _rnea_sweeps(
         robot, Rl, tl,
         [qdv[ld[l]] if l in ld else zero for l in range(L)],
@@ -272,7 +294,8 @@ class StepReplay:
         D = robot.n_dofs
         qT, qdT = q.transpose(0, 1), qd.transpose(0, 1)  # [D, H, B]
         self.dt, self.D = flags.dt, D
-        nle = rnea_scalar(robot, qT, qdT, torch.zeros_like(qT), use_damping=flags.use_damping)
+        nle = rnea_scalar(robot, qT, qdT, torch.zeros_like(qT), flags.include_gravity,
+                          flags.use_damping, flags.gravity)
         M = mass_matrix_scalar(robot, qT)
         rows = [[M[i][j] for j in range(D)] for i in range(D)]
         if flags.use_damping:
@@ -283,7 +306,8 @@ class StepReplay:
         vmax = _velocity_bound(robot, 2)
         x = qdT + flags.dt * torch.stack(qdd)
         self.mask = _clip_grad(x, -vmax, vmax)  # [D, H, B]
-        self.jac = rnea_jacobians(robot, qT, qdT, qdd, flags.use_damping)
+        self.jac = rnea_jacobians(robot, qT, qdT, qdd, flags.use_damping, flags.include_gravity,
+                                  flags.gravity)
 
     def pull(self, h: int, gqn, gqdn):
         """(τ̄, q̄, q̄d) of stage h for the cotangents gqn on q' and gqdn on
@@ -335,35 +359,76 @@ def ee_jacobian_t(robot: RobotStruct, qs, ps, gps, ee_link_idx: int):
     return torch.stack(rows, dim=1)
 
 
-def dyn_rollout_ee_fwd_reference(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping=True):
+def dyn_rollout_fwd_reference(robot, q0T, qd0T, tauT, dt, use_damping=True, include_gravity=True,
+                              gravity=GRAVITY):
+    """Plain version of `dyn_rollout_fwd`: `dynamic_rollout_dof_major`.
+    Returns (qs, qds [H, D, B])."""
+    _check_rollout(robot, q0T, qd0T, tauT)
+    return dynamic_rollout_dof_major(
+        robot, q0T, qd0T, tauT, dt, include_gravity=include_gravity, use_damping=use_damping,
+        gravity=gravity,
+    )
+
+
+def dyn_rollout_ee_fwd_reference(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping=True,
+                                 include_gravity=True, gravity=GRAVITY):
     """Plain version of `dyn_rollout_ee_fwd`: `dynamic_rollout_dof_major` and
     the chain FK of every state. Returns (qs, qds [H, D, B], ps [H, 3, B])."""
-    _check_rollout(robot, q0T, qd0T, tauT)
-    qs, qds = dynamic_rollout_dof_major(
-        robot, q0T, qd0T, tauT, dt, use_damping=use_damping
+    qs, qds = dyn_rollout_fwd_reference(
+        robot, q0T, qd0T, tauT, dt, use_damping, include_gravity, gravity
     )
     consts = chain_constants(robot, ee_link_idx)
     ps = torch.stack(chain_sweep(consts, lambda d: qs[:, d], qs[:, 0]), dim=1)
     return qs, qds, ps
 
 
-def dyn_rollout_ee_bwd_reference(robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx,
-                                 use_damping=True):
-    """Plain version of `dyn_rollout_ee_bwd`: the kernel's adjoint in eager
-    torch, stage by stage from the last (`StepReplay.pull`), with the ee
-    cotangents gps [H, 3, B] pulled back by the geometric Jacobian. Returns
-    (gtau [H, D, B], gq0, gqd0 [D, B])."""
-    _check_rollout(robot, q0T, qd0T, tauT)
-    replay = StepReplay(
-        robot, _states_before(q0T, qs), _states_before(qd0T, qds), tauT,
-        StepFlags(dt, use_damping),
-    )
-    jtg = ee_jacobian_t(robot, qs, ps, gps, ee_link_idx)
+def _adjoint_reference(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, flags, jtg=None):
+    """The adjoint kernels' arithmetic in eager torch, stage by stage from
+    the last (`StepReplay.pull`): the cotangent of q'_h is the carry plus
+    gqs[h] plus jtg[h] (J^T gps[h]), that of qd'_h the carry plus gqds[h];
+    an absent one counts as zeros. Returns (gtau [H, D, B], gq0, gqd0)."""
+    replay = StepReplay(robot, _states_before(q0T, qs), _states_before(qd0T, qds), tauT, flags)
     gq, gqd = torch.zeros_like(q0T), torch.zeros_like(q0T)
     gtau = torch.empty_like(tauT)
     for h in range(tauT.shape[0] - 1, -1, -1):
-        gtau[h], gq, gqd = replay.pull(h, gq + jtg[h], gqd)
+        gqn = gq if gqs is None else gq + gqs[h]
+        if jtg is not None:
+            gqn = gqn + jtg[h]
+        gqdn = gqd if gqds is None else gqd + gqds[h]
+        gtau[h], gq, gqd = replay.pull(h, gqn, gqdn)
     return gtau, gq, gqd
+
+
+def _bwd_shapes(tauT, qs, qds, gqs, gqds, ps=None, gps=None):
+    """The adjoint's operands with the shapes `_check_rollout` holds them to
+    (the absent cotangents left out)."""
+    H, D, B = tauT.shape if tauT.dim() == 3 else (1, 0, 0)
+    ee = (("ps", ps, (H, 3, B)), ("gps", gps, (H, 3, B))) if ps is not None else ()
+    state = tuple((n, x, (H, D, B)) for n, x in (("gqs", gqs), ("gqds", gqds)) if x is not None)
+    return (("qs", qs, (H, D, B)), ("qds", qds, (H, D, B)), *ee, *state)
+
+
+def dyn_rollout_bwd_reference(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, dt, use_damping=True,
+                              include_gravity=True, gravity=GRAVITY):
+    """Plain version of `dyn_rollout_bwd`: the VJP of the rollout for the
+    cotangents gqs on qs and gqds on qds ([H, D, B] each, or None for
+    zeros). Returns (gtau [H, D, B], gq0, gqd0 [D, B])."""
+    _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds))
+    flags = StepFlags(dt, use_damping, include_gravity, gravity)
+    return _adjoint_reference(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, flags)
+
+
+def dyn_rollout_ee_bwd_reference(robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx,
+                                 use_damping=True, include_gravity=True, gravity=GRAVITY,
+                                 gqs=None, gqds=None):
+    """Plain version of `dyn_rollout_ee_bwd`: the VJP of the rollout with the
+    ee trajectory for the ee cotangents gps [H, 3, B], pulled back by the
+    geometric Jacobian, and optionally gqs on qs and gqds on qds. Returns
+    (gtau [H, D, B], gq0, gqd0 [D, B])."""
+    _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds, ps, gps))
+    flags = StepFlags(dt, use_damping, include_gravity, gravity)
+    jtg = ee_jacobian_t(robot, qs, ps, gps, ee_link_idx)
+    return _adjoint_reference(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, flags, jtg)
 
 
 def _states_before(x0, xs):
@@ -390,13 +455,14 @@ def _configure(lib: ctypes.CDLL) -> None:
     )
     if tuple(sizes) != expect:
         raise RuntimeError(f"csrc/dyn_rollout.cu layout {tuple(sizes)} != Python's {expect}")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in ("dyn_rollout_ee_fwd_f32", "dyn_rollout_ee_fwd_f64"):
-        getattr(lib, fn).argtypes = [p] * 8 + [i, ctypes.c_int64, p]
-        getattr(lib, fn).restype = ctypes.c_int
-    for fn in ("dyn_rollout_ee_bwd_f32", "dyn_rollout_ee_bwd_f64"):
-        getattr(lib, fn).argtypes = [p] * 12 + [i, ctypes.c_int64, p]
-        getattr(lib, fn).restype = ctypes.c_int
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    n_ptrs = {"dyn_rollout_fwd": 6, "dyn_rollout_ee_fwd": 8, "dyn_rollout_bwd": 11,
+              "dyn_rollout_ee_bwd": 14}
+    for name, n in n_ptrs.items():
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{sfx}")
+            fn.argtypes = [p] * n + [i, i64, p]
+            fn.restype = ctypes.c_int
 
 
 def _launch(name, args, dev):
@@ -408,16 +474,55 @@ def _launch(name, args, dev):
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def dyn_rollout_ee_fwd(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping=True):
+def _ptr(x):
+    """A tensor's device pointer, or NULL for an absent cotangent."""
+    return None if x is None else x.data_ptr()
+
+
+def _check_all_cuda(named):
+    for name, x in named:
+        if x is not None:
+            _check_cuda(x, name)
+
+
+def dyn_rollout_fwd(robot, q0T, qd0T, tauT, dt, use_damping=True, include_gravity=True,
+                    gravity=GRAVITY):
+    """Kernel `dyn_rollout_fwd`: H steps from (q0T, qd0T [D, B]) under
+    tauT [H, D, B]; returns (qs, qds [H, D, B]), the state after each step."""
+    H, D, B = _check_rollout(robot, q0T, qd0T, tauT)
+    if q0T.device.type == "cpu":
+        return dyn_rollout_fwd_reference(
+            robot, q0T, qd0T, tauT, dt, use_damping, include_gravity, gravity
+        )
+    _check_all_cuda((("q0T", q0T), ("qd0T", qd0T), ("tauT", tauT)))
+    tree = tree_struct(robot, StepFlags(dt, use_damping, include_gravity, gravity))
+    qs, qds = torch.empty_like(tauT), torch.empty_like(tauT)
+    if B:
+        _launch(
+            f"dyn_rollout_fwd_{_suffix(tauT.dtype)}",
+            (ctypes.byref(tree), q0T.data_ptr(), qd0T.data_ptr(), tauT.data_ptr(),
+             qs.data_ptr(), qds.data_ptr(), H, B),
+            tauT.device,
+        )
+        dyn_rollout_fwd.launches += 1
+    return qs, qds
+
+
+dyn_rollout_fwd.launches = 0
+
+
+def dyn_rollout_ee_fwd(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping=True,
+                       include_gravity=True, gravity=GRAVITY):
     """Kernel `dyn_rollout_ee_fwd`: H steps from (q0T, qd0T [D, B]) under
     tauT [H, D, B]; returns (qs, qds [H, D, B], ps [H, 3, B]), the state and
     the ee position after each step."""
     H, D, B = _check_rollout(robot, q0T, qd0T, tauT)
     if q0T.device.type == "cpu":
-        return dyn_rollout_ee_fwd_reference(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping)
-    for name, x in (("q0T", q0T), ("qd0T", qd0T), ("tauT", tauT)):
-        _check_cuda(x, name)
-    tree = tree_struct(robot, StepFlags(dt, use_damping))
+        return dyn_rollout_ee_fwd_reference(
+            robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping, include_gravity, gravity
+        )
+    _check_all_cuda((("q0T", q0T), ("qd0T", qd0T), ("tauT", tauT)))
+    tree = tree_struct(robot, StepFlags(dt, use_damping, include_gravity, gravity))
     ch = chain_struct(robot, ee_link_idx)
     qs, qds = torch.empty_like(tauT), torch.empty_like(tauT)
     ps = torch.empty((H, 3, B), dtype=tauT.dtype, device=tauT.device)
@@ -435,32 +540,61 @@ def dyn_rollout_ee_fwd(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping=True
 dyn_rollout_ee_fwd.launches = 0
 
 
-def dyn_rollout_ee_bwd(robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx,
-                       use_damping=True):
-    """Kernel `dyn_rollout_ee_bwd`: the VJP of `dyn_rollout_ee_fwd` for ee
-    cotangents gps [H, 3, B], from its saved outputs. Returns (gtau
-    [H, D, B], gq0, gqd0 [D, B])."""
-    H, D, B = tauT.shape if tauT.dim() == 3 else (1, 0, 0)
-    _check_rollout(robot, q0T, qd0T, tauT, (
-        ("qs", qs, (H, D, B)), ("qds", qds, (H, D, B)),
-        ("ps", ps, (H, 3, B)), ("gps", gps, (H, 3, B)),
-    ))
+def dyn_rollout_bwd(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, dt, use_damping=True,
+                    include_gravity=True, gravity=GRAVITY):
+    """Kernel `dyn_rollout_bwd`: the VJP of `dyn_rollout_fwd` for the
+    cotangents gqs on qs and gqds on qds ([H, D, B] each; either may be None,
+    and then no tensor is read for it), from its saved outputs. Returns
+    (gtau [H, D, B], gq0, gqd0 [D, B])."""
+    H, D, B = _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds))
     if q0T.device.type == "cpu":
-        return dyn_rollout_ee_bwd_reference(
-            robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx, use_damping
+        return dyn_rollout_bwd_reference(
+            robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, dt, use_damping, include_gravity, gravity
         )
     ins = (("q0T", q0T), ("qd0T", qd0T), ("tauT", tauT), ("qs", qs), ("qds", qds),
-           ("ps", ps), ("gps", gps))
-    for name, x in ins:
-        _check_cuda(x, name)
-    tree = tree_struct(robot, StepFlags(dt, use_damping))
+           ("gqs", gqs), ("gqds", gqds))
+    _check_all_cuda(ins)
+    tree = tree_struct(robot, StepFlags(dt, use_damping, include_gravity, gravity))
+    gtau = torch.empty_like(tauT)
+    gq0, gqd0 = torch.empty_like(q0T), torch.empty_like(q0T)
+    if B:
+        _launch(
+            f"dyn_rollout_bwd_{_suffix(tauT.dtype)}",
+            (ctypes.byref(tree), *(_ptr(x) for _, x in ins),
+             gtau.data_ptr(), gq0.data_ptr(), gqd0.data_ptr(), H, B),
+            tauT.device,
+        )
+        dyn_rollout_bwd.launches += 1
+    return gtau, gq0, gqd0
+
+
+dyn_rollout_bwd.launches = 0
+
+
+def dyn_rollout_ee_bwd(robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx,
+                       use_damping=True, include_gravity=True, gravity=GRAVITY,
+                       gqs=None, gqds=None):
+    """Kernel `dyn_rollout_ee_bwd`: the VJP of `dyn_rollout_ee_fwd` for ee
+    cotangents gps [H, 3, B] and, optionally, gqs on qs and gqds on qds
+    ([H, D, B]; None reads no tensor), from its saved outputs. Returns (gtau
+    [H, D, B], gq0, gqd0 [D, B])."""
+    H, D, B = _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds, ps, gps))
+    if q0T.device.type == "cpu":
+        return dyn_rollout_ee_bwd_reference(
+            robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx, use_damping,
+            include_gravity, gravity, gqs, gqds,
+        )
+    ins = (("q0T", q0T), ("qd0T", qd0T), ("tauT", tauT), ("qs", qs), ("qds", qds),
+           ("ps", ps), ("gps", gps), ("gqs", gqs), ("gqds", gqds))
+    _check_all_cuda(ins)
+    tree = tree_struct(robot, StepFlags(dt, use_damping, include_gravity, gravity))
     ch = chain_struct(robot, ee_link_idx)
     gtau = torch.empty_like(tauT)
     gq0, gqd0 = torch.empty_like(q0T), torch.empty_like(q0T)
     if B:
         _launch(
             f"dyn_rollout_ee_bwd_{_suffix(tauT.dtype)}",
-            (ctypes.byref(tree), ctypes.byref(ch), *(x.data_ptr() for _, x in ins),
+            (ctypes.byref(tree), ctypes.byref(ch), *(_ptr(x) for _, x in ins),
              gtau.data_ptr(), gq0.data_ptr(), gqd0.data_ptr(), H, B),
             tauT.device,
         )
@@ -471,42 +605,101 @@ def dyn_rollout_ee_bwd(robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx
 dyn_rollout_ee_bwd.launches = 0
 
 
-class DynamicRolloutEE(torch.autograd.Function):
-    """`dyn_rollout_ee_fwd` forward, `dyn_rollout_ee_bwd` backward, w.r.t.
-    (q0T, qd0T, tauT); the robot is constant. Only ee cotangents are taken,
-    as the JAX kernel's hot path takes them: a cotangent on qs or qds raises
-    (use rollout_impl='scan' for those)."""
+def _contiguous(g):
+    return None if g is None else g.contiguous()
+
+
+class DynamicRollout(torch.autograd.Function):
+    """`dyn_rollout_fwd` forward, `dyn_rollout_bwd` backward for any pattern
+    of cotangents on (qs, qds), w.r.t. (q0T, qd0T, tauT); the robot is
+    constant."""
 
     @staticmethod
-    def forward(ctx, q0T, qd0T, tauT, robot, dt, ee_link_idx, use_damping):
-        qs, qds, ps = dyn_rollout_ee_fwd(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping)
+    def forward(ctx, q0T, qd0T, tauT, robot, flags):
+        check_constant_robot(robot)
+        qs, qds = dyn_rollout_fwd(robot, q0T, qd0T, tauT, **dataclasses.asdict(flags))
+        ctx.save_for_backward(q0T, qd0T, tauT, qs, qds)
+        ctx.args = (robot, flags)
+        ctx.set_materialize_grads(False)
+        return qs, qds
+
+    @staticmethod
+    def backward(ctx, gqs, gqds):
+        none = (None, None)
+        if gqs is None and gqds is None:
+            return (None, None, None) + none
+        robot, flags = ctx.args
+        gtau, gq0, gqd0 = dyn_rollout_bwd(
+            robot, *ctx.saved_tensors, _contiguous(gqs), _contiguous(gqds), **dataclasses.asdict(flags)
+        )
+        return (gq0, gqd0, gtau) + none
+
+
+class DynamicRolloutEE(torch.autograd.Function):
+    """`dyn_rollout_ee_fwd` forward; backward `dyn_rollout_ee_bwd` when the ee
+    trajectory has a cotangent, else `dyn_rollout_bwd`, for any pattern of
+    cotangents on (qs, qds, ps), w.r.t. (q0T, qd0T, tauT); the robot is
+    constant."""
+
+    @staticmethod
+    def forward(ctx, q0T, qd0T, tauT, robot, flags, ee_link_idx):
+        check_constant_robot(robot)
+        qs, qds, ps = dyn_rollout_ee_fwd(robot, q0T, qd0T, tauT, ee_link_idx=ee_link_idx,
+                                         **dataclasses.asdict(flags))
         ctx.save_for_backward(q0T, qd0T, tauT, qs, qds, ps)
-        ctx.args = (robot, dt, ee_link_idx, use_damping)
+        ctx.args = (robot, flags, ee_link_idx)
         ctx.set_materialize_grads(False)
         return qs, qds, ps
 
     @staticmethod
     def backward(ctx, gqs, gqds, gps):
-        if gqs is not None or gqds is not None:
-            raise RuntimeError(
-                "dynamic_rollout_ee differentiates the ee trajectory only; the kernel "
-                "takes no cotangent on qs or qds (use rollout_impl='scan')"
-            )
-        none = (None,) * 4
-        if gps is None:
+        none = (None,) * 3
+        if gqs is None and gqds is None and gps is None:
             return (None, None, None) + none
-        robot, dt, ee, ud = ctx.args
+        robot, flags, ee = ctx.args
         q0T, qd0T, tauT, qs, qds, ps = ctx.saved_tensors
-        gtau, gq0, gqd0 = dyn_rollout_ee_bwd(
-            robot, q0T, qd0T, tauT, qs, qds, ps, gps.contiguous(), dt, ee, ud
-        )
+        gqs, gqds = _contiguous(gqs), _contiguous(gqds)
+        if gps is None:
+            gtau, gq0, gqd0 = dyn_rollout_bwd(
+                robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, **dataclasses.asdict(flags)
+            )
+        else:
+            gtau, gq0, gqd0 = dyn_rollout_ee_bwd(
+                robot, q0T, qd0T, tauT, qs, qds, ps, gps.contiguous(), ee_link_idx=ee,
+                gqs=gqs, gqds=gqds, **dataclasses.asdict(flags),
+            )
         return (gq0, gqd0, gtau) + none
 
 
-def dynamic_rollout_ee(robot: RobotStruct, q0T, qd0T, tauT, dt: float, ee_link_idx: int,
-                       use_damping: bool = True):
-    """(qs, qds [H, D, B], ps [H, 3, B]) of H forward-dynamics steps with the
-    ee trajectory, differentiable w.r.t. (q0T, qd0T, tauT) through ps: the
-    `"kernel"` engine's rollout. Raises if a robot tensor the kernels read
+def _effort_box(robot, tauT, respect_effort_limits):
+    """The URDF effort box on the torques, before the kernel (JAX's clip and
+    its tie rule)."""
+    if not respect_effort_limits:
+        return tauT
+    emax = _effort_bound(robot, 1)
+    return _clip(tauT, -emax, emax)
+
+
+def dynamic_rollout(robot: RobotStruct, q0T, qd0T, tauT, dt: float, include_gravity: bool = True,
+                    use_damping: bool = True, gravity: float = GRAVITY,
+                    respect_effort_limits: bool = False):
+    """(qs, qds [H, D, B]) of H forward-dynamics steps from (q0T, qd0T [D, B])
+    under tauT [H, D, B], differentiable w.r.t. (q0T, qd0T, tauT) through
+    both outputs: the counterpart of the JAX package's
+    `dynamic_rollout_pallas`. Raises if a robot tensor the kernels read
     requires grad."""
-    return DynamicRolloutEE.apply(q0T, qd0T, tauT, robot, dt, ee_link_idx, use_damping)
+    flags = StepFlags(dt, use_damping, include_gravity, gravity)
+    tauT = _effort_box(robot, tauT, respect_effort_limits)
+    return DynamicRollout.apply(q0T, qd0T, tauT, robot, flags)
+
+
+def dynamic_rollout_ee(robot: RobotStruct, q0T, qd0T, tauT, dt: float, ee_link_idx: int,
+                       include_gravity: bool = True, use_damping: bool = True,
+                       gravity: float = GRAVITY):
+    """(qs, qds [H, D, B], ps [H, 3, B]) of H forward-dynamics steps with the
+    ee trajectory, differentiable w.r.t. (q0T, qd0T, tauT) through all three
+    outputs: the `"kernel"` engine's rollout, the counterpart of the JAX
+    package's `dynamic_rollout_ee_pallas`. Raises if a robot tensor the
+    kernels read requires grad."""
+    flags = StepFlags(dt, use_damping, include_gravity, gravity)
+    return DynamicRolloutEE.apply(q0T, qd0T, tauT, robot, flags, ee_link_idx)

@@ -369,7 +369,7 @@ def dyn_prologue(robot: RobotStruct, q0T, init_tauT, horizon: int, precondition:
         return dyn_prologue_reference(robot, q0T, init_tauT, horizon, precondition)
     for name, x in named:
         _check_cuda(x, name)
-    tree = tree_struct(robot, StepFlags(0.0))
+    tree = tree_struct(robot, StepFlags())
     new = lambda *shape: torch.empty(shape, dtype=q0T.dtype, device=q0T.device)
     tau_refT, aT0 = new(D, B), new(horizon, D, B)
     H0 = new(D, D, B) if precondition else None

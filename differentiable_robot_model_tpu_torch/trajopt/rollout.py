@@ -1,5 +1,7 @@
 """Rollouts: clamped joint-delta integration with the ee trajectory
-(kinematic), and semi-implicit Euler through the forward dynamics (dynamic).
+(kinematic), and Euler integration through the forward dynamics (dynamic:
+the unbatched `dynamic_rollout` and the dof-major batched twin with
+implicit damping and the velocity clamp).
 
 PyTorch counterpart of the JAX package's `trajopt/rollout.py`. Clipping is
 `torch.minimum(torch.maximum(x, lo), hi)` everywhere, never `torch.clamp`:
@@ -9,11 +11,14 @@ where `torch.clamp` passes 1.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..models.structs import RobotStruct
 from ..ops import kinematics as K
-from ..ops.dynamics_scalar import ldl_solve_scalar, mass_matrix_scalar, rnea_scalar
+from ..ops.dynamics import forward_dynamics_crb
+from ..ops.dynamics_scalar import GRAVITY, ldl_solve_scalar, mass_matrix_scalar, rnea_scalar
 
 
 def _clip(x, lo, hi):
@@ -60,13 +65,15 @@ def fd_step_implicit_damping(
     dt: float,
     include_gravity: bool = True,
     use_damping: bool = True,
+    gravity: float = GRAVITY,
 ) -> torch.Tensor:
     """Forward-dynamics acceleration with the joint damping taken implicitly:
     (H + dt diag(d)) qdd = tau - nle_with_damping(q, qd), which keeps
-    semi-implicit Euler stable for low-inertia damped joints."""
+    semi-implicit Euler stable for low-inertia damped joints. `gravity` is
+    the base's upward acceleration where `include_gravity` is on."""
     nle = rnea_scalar(
         robot, q, qd, torch.zeros_like(q),
-        include_gravity=include_gravity, use_damping=use_damping,
+        include_gravity=include_gravity, use_damping=use_damping, gravity=gravity,
     )
     H = mass_matrix_scalar(robot, q)
     if use_damping:
@@ -85,6 +92,7 @@ def dynamic_rollout_dof_major(
     include_gravity: bool = True,
     use_damping: bool = True,
     respect_effort_limits: bool = False,
+    gravity: float = GRAVITY,
 ):
     """Integrate B scenarios through H semi-implicit Euler steps of the
     forward dynamics (`fd_step_implicit_damping`), with the URDF velocity
@@ -98,13 +106,52 @@ def dynamic_rollout_dof_major(
         if emax is not None:
             tau_t = _clip(tau_t, -emax, emax)
         qdd = fd_step_implicit_damping(
-            robot, q, qd, tau_t, dt, include_gravity=include_gravity, use_damping=use_damping
+            robot, q, qd, tau_t, dt, include_gravity=include_gravity, use_damping=use_damping,
+            gravity=gravity,
         )
         qd = _clip(qd + dt * qdd, -vmax, vmax)
         q = q + dt * qd
         qs.append(q)
         qds.append(qd)
     return torch.stack(qs), torch.stack(qds)
+
+
+class DynRolloutResult(NamedTuple):
+    q: torch.Tensor  # [H, D]
+    qd: torch.Tensor  # [H, D]
+    ee: torch.Tensor  # [H, 3]
+
+
+def dynamic_rollout(
+    robot: RobotStruct,
+    q0: torch.Tensor,
+    qd0: torch.Tensor,
+    taus: torch.Tensor,
+    dt: float,
+    ee_link_idx: int,
+    include_gravity: bool = True,
+    use_damping: bool = True,
+    respect_effort_limits: bool = False,
+) -> DynRolloutResult:
+    """Integrate applied torques through the forward dynamics (semi-implicit
+    Euler, `forward_dynamics_crb`, no velocity clamp), recording the joint
+    states and the world position of `ee_link_idx` (`fk_world`) after each
+    step. Unbatched: q0, qd0 [D]; taus [H, D]. `respect_effort_limits=True`
+    clamps each torque to the URDF effort limits first."""
+    if respect_effort_limits:
+        taus = clip_to_effort(robot, taus)
+    q, qd = q0, qd0
+    qs, qds, ees = [], [], []
+    for tau in taus:
+        qdd = forward_dynamics_crb(
+            robot, q, qd, tau, include_gravity=include_gravity, use_damping=use_damping
+        )
+        qd = qd + dt * qdd
+        q = q + dt * qd
+        qs.append(q)
+        qds.append(qd)
+        ees.append(K.fk_world(robot, q)[1][ee_link_idx])
+    return DynRolloutResult(torch.stack(qs), torch.stack(qds), torch.stack(ees))
 
 
 def clamp_affine_combine(e1, e2):

@@ -2,7 +2,8 @@
 
 Every bundled URDF compiles to the same struct in both packages (arrays
 exact in float64, static tuples equal), the port's URDF copies are
-byte-identical, the model API's FK agrees, and the port stands alone: it
+byte-identical, the model API's FK agrees, the kernels' host-side constants
+follow in-place writes to the robot's tensors, and the port stands alone: it
 imports no JAX and names no module of the JAX package.
 """
 
@@ -27,6 +28,7 @@ from differentiable_robot_model_tpu_torch.models.structs import (
     struct_from_arrays,
 )
 from differentiable_robot_model_tpu_torch.ops import lie as tlie
+from differentiable_robot_model_tpu_torch.ops.kernels.rollout import StepFlags, tree_struct
 
 PORT_DIR = os.path.dirname(tdrm.__file__)
 URDFS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(jdrm.robot_description_folder, "*.urdf")))
@@ -113,6 +115,25 @@ def test_constructor_device_defaults_to_cuda():
     m = tdrm.DifferentiableKUKAiiwa(device="cpu")
     assert m.struct.device.type == "cpu"
     assert m.to(torch.float64).struct.dtype == torch.float64
+
+
+def test_kernel_constants_follow_in_place_writes_to_the_robot():
+    m = tdrm.DifferentiableKUKAiiwa(dtype=torch.float64, device="cpu")
+    flags = StepFlags()
+    tree = tree_struct(m.struct, flags)
+    assert tree_struct(m.struct, flags) is tree  # kept while nothing changes
+    mass0 = [tree.link[l].mass for l in range(tree.n)]
+    assert max(mass0) > 0
+    m.mass.mul_(2.0)
+    tree = tree_struct(m.struct, flags)
+    assert [tree.link[l].mass for l in range(tree.n)] == [2.0 * x for x in mass0]
+    m.damping.zero_()
+    assert list(tree_struct(m.struct, flags).damping[: m.n_dofs]) == [0.0] * m.n_dofs
+    state = m.state_dict()
+    state["limit_effort"] = torch.full((m.n_dofs,), 1.5, dtype=torch.float64)
+    m.load_state_dict(state)
+    assert [j["effort"] for j in m.get_joint_limits()] == [1.5] * m.n_dofs
+    assert list(tree_struct(m.struct, flags).emax[: m.n_dofs]) == [1.5] * m.n_dofs
 
 
 def test_port_imports_no_jax_and_names_no_jax_module():
