@@ -35,7 +35,7 @@ def _build_dir() -> Path:
 
 
 BUILD_DIR = _build_dir()
-SOURCES = ("fk", "kin_solve", "dyn_rollout", "dyn_solve", "rnea")
+SOURCES = ("fk", "kin_solve", "dyn_rollout", "dyn_solve", "rnea", "mppi_solve")
 # No --use_fast_math: sinf/cosf/sqrtf and division stay IEEE-accurate.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,8 +1,9 @@
-"""Whole Adam MPC solves in one launch: kernel K3 `kin_solve`
-(csrc/kin_solve.cu, kinematic) and kernel K9 `dyn_solve` with its prologue
-`dyn_prologue` (csrc/dyn_solve.cu, torque space), their plain PyTorch
-versions, and the wrappers. The dynamic half is described at
-`dynamic_adam_solve`.
+"""Whole MPC solves in one launch: kernel K3 `kin_solve` (csrc/kin_solve.cu,
+kinematic Adam), kernel K9 `dyn_solve` with its prologue `dyn_prologue`
+(csrc/dyn_solve.cu, torque-space Adam) and kernel K10 `mppi_solve`
+(csrc/mppi_solve.cu, sampling MPC), their plain PyTorch versions, and the
+wrappers. The dynamic half is described at `dynamic_adam_solve`, the MPPI
+one at `mppi_solve`.
 
 K3 replaces the JAX package's ops/pallas/solver.py `_kin_solve_kernel` and
 its wrapper `kinematic_adam_solve_fused`: per scenario, n_iters times,
@@ -33,7 +34,7 @@ import torch
 from ...models.structs import RobotStruct
 from ...trajopt.rollout import _clip, _effort_bound
 from ..dynamics_scalar import ldl_solve_scalar, mass_matrix_scalar, rnea_scalar
-from . import build
+from . import build, rng
 from .fk import (
     CHAIN_CTYPES,
     MAX_CHAIN,
@@ -51,6 +52,7 @@ from .rollout import (
     StepReplay,
     _clip_grad,
     _states_before,
+    check_constant_robot,
     check_same,
     dyn_rollout_ee_fwd_reference,
     ee_jacobian_t,
@@ -525,3 +527,188 @@ def dynamic_adam_solve(
 
 
 dynamic_adam_solve.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The MPPI whole solve: kernel K10 `mppi_solve`.
+# ---------------------------------------------------------------------------
+
+# One block per scenario and one thread per sample: a block has at most
+# 1024 threads.
+MAX_SAMPLES = 1024
+
+
+class _MppiParams(ctypes.Structure):
+    _fields_ = [
+        ("H", ctypes.c_int), ("n_iters", ctypes.c_int), ("K", ctypes.c_int),
+        ("precond", ctypes.c_int), ("effort", ctypes.c_int),
+        ("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32),
+        ("cgoal_w", ctypes.c_double), ("ceff_w", ctypes.c_double),
+        ("sigma", ctypes.c_double), ("temperature", ctypes.c_double),
+    ]
+
+
+def mppi_constants(dtype: torch.dtype, H: int, D: int, goal_weight: float, effort_weight: float,
+                   noise_sigma: float, temperature: float) -> dict:
+    """The MPPI solve's scalars rounded to `dtype`, as ops/pallas/solver.py
+    :693-697 rounds them: cgoal_w = f(f(gw^2) / (3 H)), ceff_w = f(f(ew) /
+    (H D)), sigma, temperature."""
+    c = solve_constants(dtype, H, 0, 0.0, goal_weight, 0.0, 0.0, effort_weight, D)
+    r = lambda x: float(_NP_DTYPE[dtype](x))
+    return dict(cgoal_w=c["cgoal_w"], ceff_w=c["ceff_w"], sigma=r(noise_sigma),
+                temperature=r(temperature))
+
+
+def _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters, n_samples):
+    if n_samples < 1 or n_samples > MAX_SAMPLES:
+        raise ValueError(f"mppi_solve takes 1 to {MAX_SAMPLES} samples, got {n_samples}")
+    if n_iters < 0:
+        raise ValueError(f"n_iters must be >= 0, got {n_iters}")
+    if aT0.dim() != 3 or aT0.shape[0] < 1:
+        raise ValueError(f"aT0 must be [H >= 1, D, B], got {tuple(aT0.shape)}")
+    H, D, B = aT0.shape
+    if D == 0 or D != robot.n_dofs:
+        raise ValueError(f"aT0 has {D} dofs; the robot has {robot.n_dofs} (and needs >= 1)")
+    named = [("q0T", q0T, (D, B)), ("qd0T", qd0T, (D, B)), ("goalT", goalT, (3, B)),
+             ("tau_refT", tau_refT, (D, B)), ("aT0", aT0, (H, D, B))]
+    if H0 is not None:
+        named.append(("H0", H0, (D, D, B)))
+    for name, x, shape in named:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {tuple(x.shape)}")
+    check_same(robot, [(n, x) for n, x, _ in named])
+    check_constant_robot(robot)
+    return H, D, B, [(n, x) for n, x, _ in named]
+
+
+def mppi_solve_reference(
+    robot: RobotStruct, q0T, qd0T, goalT, tau_refT, H0, aT0, key, ee_link_idx: int,
+    n_iters: int, n_samples: int, dt: float, temperature: float, noise_sigma: float,
+    goal_weight: float, effort_weight: float, use_damping: bool = True,
+    respect_effort_limits: bool = False,
+):
+    """Plain version of K10 `mppi_solve`: the MPPI iterations of the plain
+    solver (trajopt/solvers.py `_mppi_iterate`, without adaptation) on the
+    same Philox stream (ops/kernels/rng.py), with the K samples of every
+    scenario on [B K] lanes of the plain rollout `dyn_rollout_ee_fwd_reference`.
+    Returns (tau [H, D, B] applied torques, costs [n_iters+1, B])."""
+    from ...trajopt.solvers import _mppi_iterate  # trajopt.solvers imports this module
+
+    H, D, B, _ = _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters, n_samples)
+    normals = lambda t: rng.mppi_normals(key, B, t, H, D, n_samples, q0T.dtype, q0T.device)
+    ee_traj = lambda q, qd, tau: dyn_rollout_ee_fwd_reference(
+        robot, q, qd, tau, dt, ee_link_idx, use_damping)[2]
+    tau, final, history = _mppi_iterate(
+        robot, q0T, qd0T, goalT, tau_refT, H0, aT0, normals, ee_traj, n_iters, n_samples,
+        temperature, noise_sigma, goal_weight, effort_weight, respect_effort_limits,
+        adapt_sigma=False, adapt_temperature=False, ess_target_frac=0.5,
+    )
+    return tau, torch.cat([history, final[None]])
+
+
+def _configure_mppi(lib: ctypes.CDLL) -> None:
+    sizes = (ctypes.c_int64 * 5)()
+    lib.mppi_solve_layout.argtypes = [ctypes.c_void_p]
+    lib.mppi_solve_layout.restype = None
+    lib.mppi_solve_layout(sizes)
+    expect = (
+        ctypes.sizeof(TREE_CTYPES[torch.float32]),
+        ctypes.sizeof(TREE_CTYPES[torch.float64]),
+        ctypes.sizeof(CHAIN_CTYPES[torch.float32]),
+        ctypes.sizeof(CHAIN_CTYPES[torch.float64]),
+        ctypes.sizeof(_MppiParams),
+    )
+    if tuple(sizes) != expect:
+        raise RuntimeError(f"csrc/mppi_solve.cu layout {tuple(sizes)} != Python's {expect}")
+    p = ctypes.c_void_p
+    for fn in ("mppi_solve_f32", "mppi_solve_f64"):
+        getattr(lib, fn).argtypes = [p] * 11 + [ctypes.c_int64, p]
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.mppi_rng_probe.argtypes = [p, ctypes.c_uint32, ctypes.c_uint32, p, p, p, ctypes.c_int64, p]
+    lib.mppi_rng_probe.restype = ctypes.c_int
+
+
+def _launch_mppi(name, args, dev):
+    lib = build.load("mppi_solve", _configure_mppi)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def mppi_solve(
+    robot: RobotStruct, q0T, qd0T, goalT, tau_refT, H0, aT0, key, ee_link_idx: int,
+    n_iters: int, n_samples: int, dt: float, temperature: float, noise_sigma: float,
+    goal_weight: float, effort_weight: float, use_damping: bool = True,
+    respect_effort_limits: bool = False,
+):
+    """K10 `mppi_solve`: the whole MPPI solve in one launch.
+
+    Replaces the JAX package's ops/pallas/solver.py `_mppi_solve_kernel`
+    (wrapper `mppi_solve_fused`): per scenario, n_iters times, K =
+    n_samples perturbed action sequences a + eps (eps = noise_sigma times
+    Philox normals, rng.py's stream under `key`, an int or a key tensor;
+    sample 0 unperturbed), their rollouts of tau = tau_ref + H0 (a + eps)
+    with the goal + effort cost, the softmax weights at `temperature`, and
+    the nominal update. q0T, qd0T, tau_refT [D, B], goalT [3, B], H0
+    [D, D, B] or None, aT0 [H, D, B] the nominal's start (acceleration
+    units). Returns (tau [H, D, B] applied torques, costs [n_iters+1, B]):
+    costs[t] the best sampled cost of iteration t, costs[n_iters] the final
+    nominal's. float32 and float64; raises for K > 1024 or a robot that
+    requires grad, on the CPU too.
+
+    Bound on the H100: per scenario, iteration and sample, H folded FD steps
+    with the ee FK (csrc/mppi_solve.cu says what the design does about
+    it); the inputs and outputs are a few kilobytes per scenario.
+    """
+    H, D, B, named = _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters,
+                                    n_samples)
+    args = (robot, q0T, qd0T, goalT, tau_refT, H0, aT0, key, ee_link_idx, n_iters, n_samples, dt,
+            temperature, noise_sigma, goal_weight, effort_weight, use_damping,
+            respect_effort_limits)
+    if q0T.device.type == "cpu":
+        return mppi_solve_reference(*args)
+    for name, x in named:
+        _check_cuda(x, name)
+    dtype, dev = q0T.dtype, q0T.device
+    k0, k1 = rng.key_words(key)
+    tree = tree_struct(robot, StepFlags(dt, use_damping))
+    ch = chain_struct(robot, ee_link_idx)
+    c = mppi_constants(dtype, H, D, goal_weight, effort_weight, noise_sigma, temperature)
+    params = _MppiParams(H=H, n_iters=n_iters, K=n_samples, precond=int(H0 is not None),
+                         effort=int(respect_effort_limits), key0=k0, key1=k1, **c)
+    tau = torch.empty((H, D, B), dtype=dtype, device=dev)
+    costs = torch.empty((n_iters + 1, B), dtype=dtype, device=dev)
+    if B:
+        ptrs = (q0T, qd0T, tau_refT, goalT)
+        _launch_mppi(
+            f"mppi_solve_{_suffix(dtype)}",
+            (ctypes.byref(tree), ctypes.byref(ch), ctypes.byref(params),
+             *(x.data_ptr() for x in ptrs), None if H0 is None else H0.data_ptr(),
+             aT0.data_ptr(), tau.data_ptr(), costs.data_ptr(), B),
+            dev,
+        )
+        mppi_solve.launches += 1
+    return tau, costs
+
+
+mppi_solve.launches = 0
+
+
+def philox_probe(counter: torch.Tensor, key):
+    """The device generator of csrc/philox.cuh on the counters [4, N] (int64
+    words in [0, 2^32), on the card): its words [4, N] (int64) and the
+    float32 and float64 normals of the pairs (0, 1) and (2, 3), each [2, N].
+    A check of K10's generator against rng.py; no solver calls it."""
+    _check_cuda(counter, "counter")
+    N = counter.shape[1]
+    k0, k1 = rng.key_words(key)
+    ctr = counter.to(torch.int32).contiguous()  # the low 32 bits, read as uint32
+    bits = torch.empty((4, N), dtype=torch.int32, device=counter.device)
+    n32 = torch.empty((2, N), dtype=torch.float32, device=counter.device)
+    n64 = torch.empty((2, N), dtype=torch.float64, device=counter.device)
+    if N:
+        _launch_mppi("mppi_rng_probe", (ctr.data_ptr(), k0, k1, bits.data_ptr(), n32.data_ptr(),
+                                        n64.data_ptr(), N), counter.device)
+    return bits.to(torch.int64) & rng.MASK32, n32, n64

@@ -4,12 +4,15 @@ PyTorch counterpart of the kinematic and torque-space MPC drivers in the
 JAX package's `trajopt/mpc.py`. An MPC step is (solve with warm start) +
 (execute the first action(s)) + (shift the plan); the batched steps replan
 a whole fleet of B scenarios with one solve, and `run_closed_loop` runs N
-ticks of any of them.
+ticks of any of them. Three families: kinematic (Adam on joint deltas),
+torque-space (Adam through the forward dynamics) and sampling (MPPI
+through the forward dynamics).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -18,12 +21,16 @@ from ..models.structs import RobotStruct
 from ..ops import kinematics as K
 from ..ops.dynamics_scalar import rnea_scalar
 from ..ops.kernels.fk import fk_position_dof_major
+from ..ops.kernels.rng import prng_key, split_key
 from ..ops.kernels.rollout import dyn_rollout_ee_fwd, dyn_rollout_ee_fwd_reference
 from .rollout import clip_to_limits
 from .solvers import (
     resolve_dynamic_engine,
     resolve_engine,
+    resolve_mppi_engine,
     solve_dynamic_adam_batch,
+    solve_dynamic_mppi,
+    solve_dynamic_mppi_batch,
     solve_kinematic_adam,
     solve_kinematic_adam_batch,
 )
@@ -216,27 +223,36 @@ def make_dynamic_mpc_step_batch(robot: RobotStruct, ee_link_idx: int, config: Dy
             init_actions=states.plan, respect_effort_limits=config.respect_effort_limits,
             rollout_impl=engine,
         )
-        with torch.no_grad():
-            n_exec = config.replan_interval
-            actions = result.actions  # [B, H, D]
-            qs, qds, ps = plant(
-                robot, states.q.T.contiguous(), states.qd.T.contiguous(),
-                actions[:, :n_exec].permute(1, 2, 0).contiguous(), config.dt, ee_link_idx,
-            )
-            B = actions.shape[0]
-            plan_next = torch.cat(
-                [actions[:, n_exec:], actions[:, -1:].expand(B, n_exec, robot.n_dofs)], dim=1
-            )
-            metrics = MPCMetrics(
-                cost=result.cost,
-                cost_initial=result.cost_history[0],
-                goal_distance=torch.linalg.norm(ps[-1].T - goals, dim=-1),
-                plan_norm=torch.sqrt(torch.mean(actions**2, dim=(1, 2))),
-            )
-        state = DynamicMPCState(qs[-1].T, qds[-1].T, plan_next, states.step_count + 1)
-        return state, metrics
+        q, qd, plan_next, metrics = _plant_tick(
+            robot, ee_link_idx, config, plant, states, goals, result.actions, result.cost,
+            result.cost_history[0],
+        )
+        return DynamicMPCState(q, qd, plan_next, states.step_count + 1), metrics
 
     return step
+
+
+@torch.no_grad()
+def _plant_tick(robot, ee_link_idx, config, plant, states, goals, actions, cost, cost_initial):
+    """The rest of a batched torque-space tick after its solve: the plant
+    executes the first `replan_interval` torques of actions [B, H, D]
+    (`plant`: the rollout kernel K7 or its plain version, which also gives
+    the ee position), the plan shifts with its last torque held over the
+    tail, and the metrics. Returns (q', qd' [B, D], plan', metrics)."""
+    n_exec = config.replan_interval
+    qs, qds, ps = plant(
+        robot, states.q.T.contiguous(), states.qd.T.contiguous(),
+        actions[:, :n_exec].permute(1, 2, 0).contiguous(), config.dt, ee_link_idx,
+    )
+    B = actions.shape[0]
+    plan_next = torch.cat([actions[:, n_exec:], actions[:, -1:].expand(B, n_exec, robot.n_dofs)], dim=1)
+    metrics = MPCMetrics(
+        cost=cost,
+        cost_initial=cost_initial,
+        goal_distance=torch.linalg.norm(ps[-1].T - goals, dim=-1),
+        plan_norm=torch.sqrt(torch.mean(actions**2, dim=(1, 2))),
+    )
+    return qs[-1].T, qds[-1].T, plan_next, metrics
 
 
 def make_dynamic_mpc_step(robot: RobotStruct, ee_link_idx: int, config: DynamicMPCConfig):
@@ -248,6 +264,127 @@ def make_dynamic_mpc_step(robot: RobotStruct, ee_link_idx: int, config: DynamicM
     def step(state: DynamicMPCState, goal: torch.Tensor):
         states, metrics = step_batch(DynamicMPCState(*(x[None] for x in state)), goal[None])
         return DynamicMPCState(*(x[0] for x in states)), MPCMetrics(*(x[0] for x in metrics))
+
+    return step
+
+
+@dataclasses.dataclass(frozen=True)
+class MPPIMPCConfig:
+    """Config of the closed-loop sampling-based (MPPI) MPC step."""
+
+    horizon: int = 30
+    iters_per_step: int = 5
+    n_samples: int = 128
+    temperature: float = 0.01
+    noise_sigma: float = 5.0  # rad/s^2 (acceleration-unit sampling)
+    dt: float = 0.02
+    goal_weight: float = 10.0
+    effort_weight: float = 1e-4
+    replan_interval: int = 1
+    respect_effort_limits: bool = False
+    # Engine (see solvers.solve_dynamic_mppi_batch): "auto" is the
+    # whole-solve kernel K10 in the batch driver for a CUDA float32 robot,
+    # the per-iteration rollout kernel K7 in the per-scenario driver and for
+    # other CUDA robots, plain torch on the CPU; "fused" (batch only) /
+    # "kernel" / "scan" force a choice.
+    rollout_impl: str = "auto"
+    # Per-dof noise-scale and softmax-temperature adaptation
+    # (solvers.solve_dynamic_mppi adapt_sigma / adapt_temperature).
+    adapt_sigma: bool = False
+    adapt_temperature: bool = False
+
+
+class MPPIMPCState(NamedTuple):
+    q: torch.Tensor  # [..., D]
+    qd: torch.Tensor  # [..., D]
+    plan: torch.Tensor  # [..., H, D] warm-start absolute torque sequence
+    key: torch.Tensor  # [..., 2] Philox key words (int64, on the CPU), threaded through replans
+    step_count: torch.Tensor  # [...]
+
+
+def mppi_mpc_init(robot: RobotStruct, q0, qd0, config: MPPIMPCConfig, key) -> MPPIMPCState:
+    """Initial state(s) for q0, qd0 [..., D]: the plan at gravity
+    compensation, and the key the state owns, so the closed loop is
+    deterministic in it. `key` is [..., 2] with the states' batch shape, or
+    one key (an int or [2]) that a batch splits into one per scenario
+    (ops/kernels/rng.py `split_key`)."""
+    hold = dynamic_mpc_init(robot, q0, qd0, DynamicMPCConfig(horizon=config.horizon))
+    batch = hold.q.shape[:-1]
+    key = prng_key(key) if isinstance(key, int) else torch.as_tensor(key, dtype=torch.int64).cpu()
+    if key.shape == (2,) and batch:
+        key = split_key(key, math.prod(batch)).reshape(batch + (2,))
+    if key.shape != batch + (2,):
+        raise ValueError(f"key must be [2] or {list(batch + (2,))}, got {tuple(key.shape)}")
+    return MPPIMPCState(hold.q, hold.qd, hold.plan, key, hold.step_count)
+
+
+def _mppi_solve_kwargs(config: MPPIMPCConfig) -> dict:
+    return dict(
+        horizon=config.horizon, n_samples=config.n_samples, n_iters=config.iters_per_step,
+        dt=config.dt, temperature=config.temperature, noise_sigma=config.noise_sigma,
+        goal_weight=config.goal_weight, effort_weight=config.effort_weight,
+        respect_effort_limits=config.respect_effort_limits, adapt_sigma=config.adapt_sigma,
+        adapt_temperature=config.adapt_temperature,
+    )
+
+
+def make_mppi_mpc_step_batch(robot: RobotStruct, ee_link_idx: int, config: MPPIMPCConfig):
+    """The fleet MPPI MPC step: (states [B], goals [B, 3]) -> (states',
+    metrics), one batched sampling solve (solvers.solve_dynamic_mppi_batch)
+    per replan, warm-started from the shifted plan.
+
+    Every scenario's key advances each tick, and, as the JAX package does,
+    the solve draws all scenarios' noise from scenario 0's key (scenario b
+    at counter word b of its stream): each tick draws fresh noise and the
+    loop is deterministic in the initial keys. The plant executes the first
+    `replan_interval` torques through the integrator the samples use, one
+    launch of the rollout kernel K7 (`dyn_rollout_ee_fwd`, its plain version
+    on the "scan" engine), which also gives the ee position for the metrics.
+    With "auto" on a CUDA float32 robot a replan is three launches: the
+    prologue, K10 and K7.
+    """
+    engine = resolve_mppi_engine(config.rollout_impl, robot, config.n_samples,
+                                 config.adapt_sigma or config.adapt_temperature, batched=True)
+    plant = dyn_rollout_ee_fwd_reference if engine == "scan" else dyn_rollout_ee_fwd
+    kwargs = _mppi_solve_kwargs(config)
+
+    def step(states: MPPIMPCState, goals: torch.Tensor):
+        keys = split_key(states.key)  # [B, 2, 2]
+        key_next, key_solve = keys[:, 0], keys[:, 1]
+        result = solve_dynamic_mppi_batch(
+            robot, states.q, states.qd, goals, ee_link_idx, key=key_solve[0],
+            init_actions=states.plan, rollout_impl=engine, **kwargs,
+        )
+        q, qd, plan_next, metrics = _plant_tick(
+            robot, ee_link_idx, config, plant, states, goals, result.actions, result.cost,
+            result.cost_history[:, 0],
+        )
+        return MPPIMPCState(q, qd, plan_next, key_next, states.step_count + 1), metrics
+
+    return step
+
+
+def make_mppi_mpc_step(robot: RobotStruct, ee_link_idx: int, config: MPPIMPCConfig):
+    """The single-scenario MPPI MPC step: (state, goal [3]) -> (state',
+    metrics), on `solvers.solve_dynamic_mppi` with the state's key split
+    each tick; the plant step and the plan shift as in the batch step."""
+    engine = resolve_mppi_engine(config.rollout_impl, robot, config.n_samples,
+                                 config.adapt_sigma or config.adapt_temperature, batched=False)
+    plant = dyn_rollout_ee_fwd_reference if engine == "scan" else dyn_rollout_ee_fwd
+    kwargs = _mppi_solve_kwargs(config)
+
+    def step(state: MPPIMPCState, goal: torch.Tensor):
+        key_next, key_solve = split_key(state.key)
+        result = solve_dynamic_mppi(
+            robot, state.q, state.qd, goal, ee_link_idx, key=key_solve,
+            init_actions=state.plan, rollout_impl=engine, **kwargs,
+        )
+        q, qd, plan_next, metrics = _plant_tick(
+            robot, ee_link_idx, config, plant, MPPIMPCState(*(x[None] for x in state)), goal[None],
+            result.actions[None], result.cost[None], result.cost_history[:1],
+        )
+        new = MPPIMPCState(q[0], qd[0], plan_next[0], key_next, state.step_count + 1)
+        return new, MPCMetrics(*(x[0] for x in metrics))
 
     return step
 
