@@ -7,10 +7,14 @@ hand-written CUDA kernels' wrappers in `ops/kernels/` and their sources in
 copies of the bundled URDFs in `robot_data/`. So far it serves the
 kinematic MPC path (`trajopt.mpc.make_mpc_step_batch`), the torque-space
 MPC path (`trajopt.mpc.make_dynamic_mpc_step_batch`, `run_closed_loop`),
-with the scalar dynamics under the latter in `ops/dynamics_scalar.py`, and
-the robot-model API (`DifferentiableRobotModel.compute_*`, inverse
-dynamics on the RNEA kernel) with the lie, spatial, kinematics and
-dynamics ops under it.
+with the scalar dynamics under the latter in `ops/dynamics_scalar.py`, the
+sampling (MPPI) MPC path (`trajopt.mpc.make_mppi_mpc_step_batch`,
+`make_mppi_mpc_step`), the robot-model API
+(`DifferentiableRobotModel.compute_*`, inverse dynamics on the RNEA
+kernel) with the lie, spatial, kinematics and dynamics ops under it, and
+the differentiable state-only rollout
+(`ops.kernels.rollout.dynamic_rollout`) beside the one with the
+end-effector trajectory (`dynamic_rollout_ee`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`, and raise
 when no CUDA device exists. Float32 work runs in full float32: the port's

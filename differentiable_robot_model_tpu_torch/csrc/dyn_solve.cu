@@ -8,12 +8,16 @@
 //   forward:  tau_h = tau_ref + H0 a_h, tau_c = clip(tau_h, +-emax) (with
 //             the effort box), (q, qd) <- step(q, qd, tau_c), p_h = ee FK,
 //             cost = cgoal_w sum |p_h - goal|^2 + ceff_w sum |H0 a_h|^2;
-//   adjoint:  from the last stage back to the first, replay stage h from the
-//             saved state, dq' = gq + J^T gpe_h, the implicit-function step
-//             adjoint of dyn_step.cuh (the TPU kernel takes jax.vjp of the
-//             step inside the kernel; CUDA has none), the effort box's mask,
-//             the effort gradient on the unclipped tau - tau_ref, the H0^T
-//             chain, and the optax-form Adam update of a_h at once.
+//             each stage's LDL^T factor of Ĥ = M(q) + dt diag(d), its
+//             acceleration qdd* and J(q'_h)^T gpe_h (from the FK sweep's
+//             joint axes and origins) are stored for the adjoint;
+//   adjoint:  from the last stage back to the first, dq' = gq + J^T gpe_h,
+//             the implicit-function step adjoint (the TPU kernel takes
+//             jax.vjp of the step inside the kernel; CUDA has none) from
+//             the stored factor and qdd*, with the RNEA partials from one
+//             reverse sweep, the effort box's mask, the effort gradient on
+//             the unclipped tau - tau_ref, the H0^T chain, and the
+//             optax-form Adam update of a_h at once.
 //
 // dyn_prologue replaces no TPU kernel: it is the eager code around the
 // solve (trajopt/solvers.py:424-425 and :500-502: the gravity torques and
@@ -22,18 +26,23 @@
 // programs and eager PyTorch would run as thousands of small launches.
 //
 // Layout: q0, qd0, tau_ref [D, B], goal [3, B], H0 [D*D, B], a0, a, tau
-// [H*D, B], costs [n_iters+1, B]; scratch m, v, tau_s, qs, qds [H*D, B] and
-// ps [H*3, B], all scenario-minor. At iiwa H=50, B=4096 the scratch is about
-// 37 MB and may stay in the 50 MB L2.
+// [H*D, B], costs [n_iters+1, B]; scratch m, v, tau_s, qs, qds, jtg [H*D,
+// B] and the step factors fac [H*(D(D-1)/2 + 2D), B], all scenario-minor.
+// At iiwa H=50, B=4096 the scratch is about 69 MB.
 //
 // Bound on the H100: per scenario, stage and iteration the function needs a
-// step and a chain FK forward, and a replayed step, an LDL^T solve, the
-// J^T g sweep and the RNEA partials backward: tens of thousands of FP32
-// operations over a few hundred bytes of inputs, so operations bound it. One
-// thread per scenario at B=4096 is one warp per SM, so each thread's
-// dependent chain sets the time; spreading a scenario over several threads,
-// and one reverse RNEA sweep for the partials in place of 2D dual sweeps,
-// are the later changes.
+// step and a chain FK with J^T g forward, and an LDL^T solve and an RNEA
+// with its reverse sweep backward: thousands of FP32 operations over a few
+// hundred bytes of inputs, so operations bound it. One thread per
+// scenario at B=4096 is one warp per SM, so each scenario's dependent chain
+// sets the time. The design cuts that chain: for a serial chain the step
+// is instantiated with its shape fixed (dyn_step.cuh `DrmSerial`), so its
+// per-link state stays in registers, and two warps share each scenario's
+// work (`dyn_solve_pair_kernel`: the RNEA sweeps on one, the rest on the
+// other); the adjoint reads the forward's factor, qdd* and J^T gpe instead
+// of replaying the step and the FK sweep, and takes the RNEA partials from
+// one reverse sweep in place of 2D dual-number sweeps. Trees run one thread
+// per scenario (`dyn_solve_kernel`) on the generic builds.
 
 #include <cstdint>
 
@@ -52,31 +61,39 @@ struct DynSolveParams {
 
 namespace {
 
-template <int NL, int ND>
-__global__ void dyn_solve_kernel(const __grid_constant__ Tree<float> tr,
-                                 const __grid_constant__ Chain<float> ch,
-                                 const __grid_constant__ DynSolveParams P,
-                                 const float* __restrict__ q0, const float* __restrict__ qd0,
-                                 const float* __restrict__ tau_ref, const float* __restrict__ goal,
-                                 const float* __restrict__ a0, const float* __restrict__ H0,
-                                 const float* __restrict__ bc, float* __restrict__ tau_out,
-                                 float* __restrict__ costs, float* __restrict__ a,
-                                 float* __restrict__ m, float* __restrict__ v,
-                                 float* __restrict__ tau_s, float* __restrict__ qs,
-                                 float* __restrict__ qds, float* __restrict__ ps, int64_t B) {
+constexpr int kThreads = 32;
+
+// Per stage, the forward's step factors that the adjoint reads: Ĥ's LDL^T
+// factor (its strict lower triangle, then its diagonal) and qdd*.
+__host__ __device__ constexpr int fac_rows(int D) { return D * (D - 1) / 2 + 2 * D; }
+
+// K9 on one thread per scenario, for the generic builds (trees).
+template <class Topo>
+__global__ void __launch_bounds__(kThreads)
+    dyn_solve_kernel(const __grid_constant__ Tree<float> tr, const __grid_constant__ Chain<float> ch,
+                     const __grid_constant__ DynSolveParams P, const float* __restrict__ q0,
+                     const float* __restrict__ qd0, const float* __restrict__ tau_ref,
+                     const float* __restrict__ goal, const float* __restrict__ a0,
+                     const float* __restrict__ H0, const float* __restrict__ bc,
+                     float* __restrict__ tau_out, float* __restrict__ costs, float* __restrict__ a,
+                     float* __restrict__ m, float* __restrict__ v, float* __restrict__ tau_s,
+                     float* __restrict__ qs, float* __restrict__ qds, float* __restrict__ jtg,
+                     float* __restrict__ fac, int64_t B) {
+  constexpr int ND = Topo::ND, NP = ND * (ND + 1) / 2;
   const int64_t b = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const int D = tr.D, H = P.H;
+  const int D = Topo::dofs(tr), H = P.H, NF = fac_rows(D), NS = D * (D - 1) / 2;
   auto at = [&](int row) { return int64_t(row) * B + b; };
+  // the factors of stage h: row f of `fac_rows`
+  auto fat = [&](int h, int f) { return at(h * NF + f); };
 
-  float q0r[ND], qd0r[ND], trf[ND], H0v[ND * ND];
+  float q0r[ND], qd0r[ND], trf[ND];
+#pragma unroll
   for (int d = 0; d < D; ++d) {
     q0r[d] = q0[at(d)];
     qd0r[d] = qd0[at(d)];
     trf[d] = tau_ref[at(d)];
   }
-  if (P.precond)
-    for (int i = 0; i < D * D; ++i) H0v[i] = H0[at(i)];
   const float gl[3] = {goal[at(0)], goal[at(1)], goal[at(2)]};
   for (int i = 0; i < H * D; ++i) {
     a[at(i)] = a0[at(i)];
@@ -85,22 +102,26 @@ __global__ void dyn_solve_kernel(const __grid_constant__ Tree<float> tr,
   }
   auto box = [&](float x, int d) { return P.effort ? drm_clip(x, -tr.emax[d], tr.emax[d]) : x; };
 
-  // The rollout at the current actions; saves tau, qs, qds and ps for the
-  // adjoint and returns the cost (with `final`, writes the applied torques).
+  // The rollout at the current actions; saves tau, qs, qds, J^T gpe and the
+  // step factors for the adjoint and returns the cost (with `final`, writes the
+  // applied torques instead of the factors).
   auto forward = [&](bool final) {
     float q[ND], qd[ND];
+#pragma unroll
     for (int d = 0; d < D; ++d) {
       q[d] = q0r[d];
       qd[d] = qd0r[d];
     }
     float cg = 0.f, ce = 0.f;
     for (int h = 0; h < H; ++h) {
-      float dtau[ND], tc[ND], qn[ND], qdn[ND];
+      float dtau[ND], tc[ND], Lf[NP], dg[ND], qdd[ND], qn[ND], qdn[ND];
+#pragma unroll
       for (int d = 0; d < D; ++d) {
         float s;
         if (P.precond) {
           s = 0.f;
-          for (int e = 0; e < D; ++e) s = s + H0v[d * D + e] * a[at(h * D + e)];
+#pragma unroll
+          for (int e = 0; e < D; ++e) s = s + H0[at(d * D + e)] * a[at(h * D + e)];
         } else {
           s = a[at(h * D + d)];
         }
@@ -110,62 +131,111 @@ __global__ void dyn_solve_kernel(const __grid_constant__ Tree<float> tr,
         tc[d] = box(tau, d);
         if (final) tau_out[at(h * D + d)] = tc[d];
       }
-      drm_fd_step<float, NL, ND>(tr, q, qd, tc, qn, qdn);
+      drm_rr_fd_accel<float, Topo>(tr, q, qd, tc, Lf, dg, qdd);
+      if (!final) {
+#pragma unroll
+        for (int i = 1; i < D; ++i)
+#pragma unroll
+          for (int j = 0; j < i; ++j) fac[fat(h, i * (i - 1) / 2 + j)] = Lf[drm_tri(i, j)];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          fac[fat(h, NS + d)] = dg[d];
+          fac[fat(h, NS + D + d)] = qdd[d];
+        }
+      }
+      drm_rr_euler<float, Topo>(tr, q, qd, qdd, qn, qdn);
+#pragma unroll
       for (int d = 0; d < D; ++d) {
         q[d] = qn[d];
         qd[d] = qdn[d];
         qs[at(h * D + d)] = qn[d];
         qds[at(h * D + d)] = qdn[d];
       }
-      float p[3];
-      drm_chain_sweep(ch, [&](int d) { return q[d]; }, DrmNoRecord{}, p);
+      // the ee position, and J(q')^T gpe for the adjoint from each joint's
+      // world axis z and origin o (drm_joint_vjp)
+      float p[3], zs[ND][3], os[ND][3], gpe[3];
+      int ty[ND];
+#pragma unroll
+      for (int d = 0; d < D; ++d) ty[d] = DRM_FIXED;
+      drm_rr_ee<float, Topo>(
+          ch, q,
+          [&](int type, int dof, const float* z, const float* o) {
+            ty[dof] = type;
+            for (int i = 0; i < 3; ++i) {
+              zs[dof][i] = z[i];
+              os[dof][i] = o[i];
+            }
+          },
+          p);
       for (int j = 0; j < 3; ++j) {
-        ps[at(h * 3 + j)] = p[j];
         const float diff = p[j] - gl[j];
         cg = cg + diff * diff;
+        gpe[j] = P.gpe_w * diff;
       }
+      if (!final) {
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          jtg[at(h * D + d)] = ty[d] == DRM_FIXED ? 0.f : drm_joint_vjp(ty[d], zs[d], os[d], p, gpe);
+      }
+#pragma unroll
       for (int d = 0; d < D; ++d) ce = ce + dtau[d] * dtau[d];
     }
     return P.cgoal_w * cg + P.ceff_w * ce;
   };
 
-  for (int t = 0; t < P.n_iters; ++t) {
-    costs[at(t)] = forward(false);
+  // One call site of the forward, so that its unrolled step is emitted once.
+  for (int t = 0;; ++t) {
+    const bool final = t == P.n_iters;
+    costs[at(t)] = forward(final);
+    if (final) break;
     const float alpha = bc[2 * t], ibc2 = bc[2 * t + 1];
     float gq[ND], gqd[ND];
+#pragma unroll
     for (int d = 0; d < D; ++d) gq[d] = gqd[d] = 0.f;
     for (int h = H - 1; h >= 0; --h) {
-      float q[ND], qd[ND], tau[ND], tc[ND], qn[ND], gqn[ND], lam[ND], gt[ND];
+      // dq' = gq + J(q')^T gpe_h
+      float gqn[ND];
+#pragma unroll
+      for (int d = 0; d < D; ++d) gqn[d] = gq[d] + jtg[at(h * D + d)];
+      // The step's adjoint from the stored factors (the implicit-function
+      // identity of drm_fd_step_adjoint): x̄ = (ḡqd' + dt ḡq') dclip(x),
+      // λ = Ĥ⁻¹ dt x̄, then one reverse RNEA sweep at (q, qd, qdd*).
+      float q[ND], qd[ND], qdd[ND], Lf[NP], dg[ND], gx[ND], rhs[ND], lam[ND], jac[2 * ND];
+#pragma unroll
       for (int d = 0; d < D; ++d) {
         q[d] = h == 0 ? q0r[d] : qs[at((h - 1) * D + d)];
         qd[d] = h == 0 ? qd0r[d] : qds[at((h - 1) * D + d)];
-        tau[d] = tau_s[at(h * D + d)];
-        tc[d] = box(tau[d], d);
-        qn[d] = qs[at(h * D + d)];
-        gqn[d] = gq[d];
+        dg[d] = fac[fat(h, NS + d)];
+        qdd[d] = fac[fat(h, NS + D + d)];
       }
-      float p[3], gpe[3];
-      for (int j = 0; j < 3; ++j) {
-        p[j] = ps[at(h * 3 + j)];
-        gpe[j] = P.gpe_w * (p[j] - gl[j]);
-      }
-      float pw[3];
-      drm_chain_sweep(
-          ch, [&](int d) { return qn[d]; },
-          [&](int type, int dof, const float* z, const float* o) {
-            gqn[dof] += drm_joint_vjp(type, z, o, p, gpe);
-          },
-          pw);
-      drm_fd_step_adjoint<float, NL, ND>(tr, q, qd, tc, gqn, gqd, lam, gq, gqd);
+#pragma unroll
+      for (int i = 1; i < D; ++i)
+#pragma unroll
+        for (int j = 0; j < i; ++j) Lf[drm_tri(i, j)] = fac[fat(h, i * (i - 1) / 2 + j)];
+#pragma unroll
       for (int d = 0; d < D; ++d) {
-        const float g_box = P.effort ? lam[d] * drm_clip_grad(tau[d], -tr.emax[d], tr.emax[d]) : lam[d];
-        gt[d] = g_box + P.geff_w * (tau[d] - trf[d]);
+        const float x = qd[d] + tr.dt * qdd[d];
+        gx[d] = (gqd[d] + tr.dt * gqn[d]) * drm_clip_grad(x, -tr.vmax[d], tr.vmax[d]);
+        rhs[d] = tr.dt * gx[d];
       }
+      drm_rr_ldl_solve<float, Topo>(tr, Lf, dg, rhs, lam);
+      drm_rr_rnea_vjp<float, Topo>(tr, q, qd, qdd, lam, jac);
+      float gt[ND];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        gq[d] = gqn[d] - jac[d];
+        gqd[d] = gx[d] - jac[D + d];
+        const float tau = tau_s[at(h * D + d)];
+        const float g_box = P.effort ? lam[d] * drm_clip_grad(tau, -tr.emax[d], tr.emax[d]) : lam[d];
+        gt[d] = g_box + P.geff_w * (tau - trf[d]);
+      }
+#pragma unroll
       for (int e = 0; e < D; ++e) {
         float g = gt[e];
         if (P.precond) {
           g = 0.f;
-          for (int d = 0; d < D; ++d) g = g + H0v[d * D + e] * gt[d];
+#pragma unroll
+          for (int d = 0; d < D; ++d) g = g + H0[at(d * D + e)] * gt[d];
         }
         const int64_t i = at(h * D + e);
         const float mu = P.b1 * m[i] + P.omb1 * g;
@@ -176,7 +246,273 @@ __global__ void dyn_solve_kernel(const __grid_constant__ Tree<float> tr,
       }
     }
   }
-  costs[at(P.n_iters)] = forward(true);
+}
+
+// K9 for a serial chain, on two warps per block of kPairLanes scenarios,
+// lane i of both warps on scenario i: warp 0 takes the RNEA sweeps, warp 1
+// the rest, so that a scenario's chain of dependent operations runs on two
+// schedulers at once. Per forward stage, warp 0 closes the previous stage
+// (its ee FK, cost and J^T gpe) and computes the bias torques nle(q, qd)
+// while warp 1 forms tau and Ĥ's LDL^T factor; warp 1 then solves for qdd*
+// and both take the Euler step. Per adjoint stage, warp 0 computes the RNEA
+// at (q, qd, qdd*) of the next stage down into shared memory while warp 1
+// solves for λ, runs the reverse sweep from the RNEA in shared memory
+// (double-buffered) and updates the actions. The arithmetic is
+// dyn_solve_kernel's.
+constexpr int kPairLanes = 32;
+
+template <class Topo>
+constexpr size_t pair_shared_bytes() {
+  return sizeof(float) * kPairLanes *
+         (2 * DrmSharedRnea<float, Topo, kPairLanes>::kSize + 2 * Topo::ND + 1);
+}
+
+template <class Topo>
+__global__ void __launch_bounds__(2 * kPairLanes)
+    dyn_solve_pair_kernel(const __grid_constant__ Tree<float> tr,
+                          const __grid_constant__ Chain<float> ch,
+                          const __grid_constant__ DynSolveParams P, const float* __restrict__ q0,
+                          const float* __restrict__ qd0, const float* __restrict__ tau_ref,
+                          const float* __restrict__ goal, const float* __restrict__ a0,
+                          const float* __restrict__ H0, const float* __restrict__ bc,
+                          float* __restrict__ tau_out, float* __restrict__ costs,
+                          float* __restrict__ a, float* __restrict__ m, float* __restrict__ v,
+                          float* __restrict__ tau_s, float* __restrict__ qs,
+                          float* __restrict__ qds, float* __restrict__ jtg,
+                          float* __restrict__ fac, int64_t B) {
+  constexpr int ND = Topo::ND, NP = ND * (ND + 1) / 2, D = ND, NF = fac_rows(ND),
+                NS = ND * (ND - 1) / 2;
+  using Shared = DrmSharedRnea<float, Topo, kPairLanes>;
+  extern __shared__ __align__(16) float pair_smem[];
+  const int lane = int(threadIdx.x) % kPairLanes;
+  const bool rnea_warp = int(threadIdx.x) < kPairLanes;
+  const int64_t b0 = int64_t(blockIdx.x) * kPairLanes + lane;
+  const bool live = b0 < B;
+  const int64_t b = live ? b0 : B - 1;  // past the batch, a copy of the last scenario
+  const int H = P.H;
+  auto at = [&](int row) { return int64_t(row) * B + b; };
+  auto fat = [&](int h, int f) { return at(h * NF + f); };
+  // shared memory: the adjoint's two RNEA buffers, then nle and qdd of the
+  // forward's stage and the effort cost, each lane-strided
+  auto rnea_buf = [&](int h) {
+    return Shared{pair_smem + (h & 1) * Shared::kSize * kPairLanes + lane, tr};
+  };
+  float* x_nle = pair_smem + 2 * Shared::kSize * kPairLanes + lane;
+  float* x_qdd = x_nle + ND * kPairLanes;
+  float* x_ce = x_qdd + ND * kPairLanes;
+
+  float q0r[ND], qd0r[ND], trf[ND];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    q0r[d] = q0[at(d)];
+    qd0r[d] = qd0[at(d)];
+    trf[d] = tau_ref[at(d)];
+  }
+  const float gl[3] = {goal[at(0)], goal[at(1)], goal[at(2)]};
+  if (!rnea_warp && live)
+    for (int i = 0; i < H * D; ++i) {
+      a[at(i)] = a0[at(i)];
+      m[at(i)] = 0.f;
+      v[at(i)] = 0.f;
+    }
+  __syncthreads();
+  auto box = [&](float x, int d) { return P.effort ? drm_clip(x, -tr.emax[d], tr.emax[d]) : x; };
+
+  for (int t = 0;; ++t) {
+    const bool final = t == P.n_iters;
+    // ---- the rollout
+    float q[ND], qd[ND], cg = 0.f, ce = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      q[d] = q0r[d];
+      qd[d] = qd0r[d];
+    }
+    // warp 0: the ee FK at q_{h+1} closes stage h (cost, J^T gpe)
+    auto close_stage = [&](int h) {
+      float p[3], zs[ND][3], os[ND][3], gpe[3];
+      int ty[ND];
+#pragma unroll
+      for (int d = 0; d < D; ++d) ty[d] = DRM_FIXED;
+      drm_rr_ee<float, Topo>(
+          ch, q,
+          [&](int type, int dof, const float* z, const float* o) {
+            ty[dof] = type;
+            for (int i = 0; i < 3; ++i) {
+              zs[dof][i] = z[i];
+              os[dof][i] = o[i];
+            }
+          },
+          p);
+      for (int j = 0; j < 3; ++j) {
+        const float diff = p[j] - gl[j];
+        cg = cg + diff * diff;
+        gpe[j] = P.gpe_w * diff;
+      }
+      if (!final && live) {
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          jtg[at(h * D + d)] = ty[d] == DRM_FIXED ? 0.f : drm_joint_vjp(ty[d], zs[d], os[d], p, gpe);
+      }
+    };
+    for (int h = 0; h < H; ++h) {
+      float tc[ND], Lf[NP], dg[ND], qdd[ND];
+      if (rnea_warp) {
+        if (h > 0) close_stage(h - 1);
+        float R[Topo::NL][9], tl[Topo::NL][3], zero[ND], nle[ND];
+        drm_rr_local<float, Topo>(tr, q, R, tl);
+#pragma unroll
+        for (int d = 0; d < D; ++d) zero[d] = 0.f;
+        DrmRneaState<float, Topo> st;
+        drm_rr_rnea<float, Topo>(tr, R, tl, qd, zero, st, nle);
+#pragma unroll
+        for (int d = 0; d < D; ++d) x_nle[d * kPairLanes] = nle[d];
+      } else {
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          float s;
+          if (P.precond) {
+            s = 0.f;
+#pragma unroll
+            for (int e = 0; e < D; ++e) s = s + H0[at(d * D + e)] * a[at(h * D + e)];
+          } else {
+            s = a[at(h * D + d)];
+          }
+          ce = ce + s * s;
+          const float tau = trf[d] + s;
+          tc[d] = box(tau, d);
+          if (live) {
+            tau_s[at(h * D + d)] = tau;
+            if (final) tau_out[at(h * D + d)] = tc[d];
+          }
+        }
+        float R[Topo::NL][9], tl[Topo::NL][3];
+        drm_rr_local<float, Topo>(tr, q, R, tl);
+        drm_rr_crb<float, Topo>(tr, R, tl, Lf);
+        if (tr.use_damping) {
+#pragma unroll
+          for (int d = 0; d < D; ++d) Lf[drm_tri(d, d)] = Lf[drm_tri(d, d)] + tr.dt_damping[d];
+        }
+        drm_rr_ldl_factor<float, Topo>(tr, Lf, dg);
+      }
+      __syncthreads();
+      if (!rnea_warp) {
+        float rhs[ND];
+#pragma unroll
+        for (int d = 0; d < D; ++d) rhs[d] = tc[d] - x_nle[d * kPairLanes];
+        drm_rr_ldl_solve<float, Topo>(tr, Lf, dg, rhs, qdd);
+#pragma unroll
+        for (int d = 0; d < D; ++d) x_qdd[d * kPairLanes] = qdd[d];
+        if (!final && live) {
+#pragma unroll
+          for (int i = 1; i < D; ++i)
+#pragma unroll
+            for (int j = 0; j < i; ++j) fac[fat(h, i * (i - 1) / 2 + j)] = Lf[drm_tri(i, j)];
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            fac[fat(h, NS + d)] = dg[d];
+            fac[fat(h, NS + D + d)] = qdd[d];
+          }
+        }
+      }
+      __syncthreads();
+      if (rnea_warp) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) qdd[d] = x_qdd[d * kPairLanes];
+      }
+      float qn[ND], qdn[ND];
+      drm_rr_euler<float, Topo>(tr, q, qd, qdd, qn, qdn);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        q[d] = qn[d];
+        qd[d] = qdn[d];
+      }
+      if (!rnea_warp && live) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          qs[at(h * D + d)] = q[d];
+          qds[at(h * D + d)] = qd[d];
+        }
+      }
+    }
+    if (rnea_warp) close_stage(H - 1);
+    else x_ce[0] = ce;
+    __syncthreads();
+    if (rnea_warp && live) costs[at(t)] = P.cgoal_w * cg + P.ceff_w * x_ce[0];
+    if (final) break;
+
+    // ---- the adjoint, warp 0 one stage ahead of warp 1
+    auto rnea_of = [&](int h) {  // warp 0: the RNEA at stage h into its buffer
+      float qh[ND], qdh[ND], qddh[ND];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        qh[d] = h == 0 ? q0r[d] : qs[at((h - 1) * D + d)];
+        qdh[d] = h == 0 ? qd0r[d] : qds[at((h - 1) * D + d)];
+        qddh[d] = fac[fat(h, NS + D + d)];
+      }
+      rnea_buf(h).compute(qh, qdh, qddh);
+    };
+    if (rnea_warp) rnea_of(H - 1);
+    __syncthreads();
+    const float alpha = bc[2 * t], ibc2 = bc[2 * t + 1];
+    float gq[ND], gqd[ND];
+#pragma unroll
+    for (int d = 0; d < D; ++d) gq[d] = gqd[d] = 0.f;
+    for (int h = H - 1; h >= 0; --h) {
+      if (rnea_warp) {
+        if (h > 0) rnea_of(h - 1);
+      } else {
+        // dq' = gq + J(q')^T gpe_h; the step's adjoint from the stored
+        // factors (dyn_solve_kernel's), the RNEA from shared memory
+        float gqn[ND], qd[ND], qdd[ND], Lf[NP], dg[ND], gx[ND], rhs[ND], lam[ND], jac[2 * ND];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          gqn[d] = gq[d] + jtg[at(h * D + d)];
+          qd[d] = h == 0 ? qd0r[d] : qds[at((h - 1) * D + d)];
+          dg[d] = fac[fat(h, NS + d)];
+          qdd[d] = fac[fat(h, NS + D + d)];
+        }
+#pragma unroll
+        for (int i = 1; i < D; ++i)
+#pragma unroll
+          for (int j = 0; j < i; ++j) Lf[drm_tri(i, j)] = fac[fat(h, i * (i - 1) / 2 + j)];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          const float x = qd[d] + tr.dt * qdd[d];
+          gx[d] = (gqd[d] + tr.dt * gqn[d]) * drm_clip_grad(x, -tr.vmax[d], tr.vmax[d]);
+          rhs[d] = tr.dt * gx[d];
+        }
+        drm_rr_ldl_solve<float, Topo>(tr, Lf, dg, rhs, lam);
+        drm_rr_rnea_reverse<float, Topo>(tr, rnea_buf(h), qd, lam, jac);
+        float gt[ND];
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          gq[d] = gqn[d] - jac[d];
+          gqd[d] = gx[d] - jac[D + d];
+          const float tau = tau_s[at(h * D + d)];
+          const float g_box = P.effort ? lam[d] * drm_clip_grad(tau, -tr.emax[d], tr.emax[d]) : lam[d];
+          gt[d] = g_box + P.geff_w * (tau - trf[d]);
+        }
+#pragma unroll
+        for (int e = 0; e < D; ++e) {
+          float g = gt[e];
+          if (P.precond) {
+            g = 0.f;
+#pragma unroll
+            for (int d = 0; d < D; ++d) g = g + H0[at(d * D + e)] * gt[d];
+          }
+          const int64_t i = at(h * D + e);
+          const float mu = P.b1 * m[i] + P.omb1 * g;
+          const float nu = P.b2 * v[i] + P.omb2 * (g * g);
+          if (live) {
+            m[i] = mu;
+            v[i] = nu;
+            a[i] = a[i] - alpha * mu / (sqrtf(nu * ibc2 + P.eps_root) + P.eps);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
 template <typename T, int NL, int ND>
@@ -216,8 +552,6 @@ __global__ void prologue_kernel(const __grid_constant__ Tree<T> tr, const T* __r
   }
 }
 
-constexpr int kThreads = 32;
-
 inline unsigned blocks_for(int64_t B) { return unsigned((B + kThreads - 1) / kThreads); }
 
 template <typename T>
@@ -238,12 +572,15 @@ int launch_prologue(const Tree<T>* tr, const T* q0, const T* init, T* tau_ref, T
 extern "C" {
 
 // sizeof(Tree<float>), sizeof(Tree<double>), sizeof(Chain<float>),
-// sizeof(DynSolveParams): the Python side checks its ctypes mirror.
+// sizeof(DynSolveParams), then the (links, dofs) of each serial
+// instantiation: the Python side checks its ctypes mirror and its variant
+// table.
 void dyn_solve_layout(int64_t* out) {
   out[0] = sizeof(Tree<float>);
   out[1] = sizeof(Tree<double>);
   out[2] = sizeof(Chain<float>);
   out[3] = sizeof(DynSolveParams);
+  drm_variant_shapes(out + 4);
 }
 
 int dyn_prologue_f32(const Tree<float>* tr, const float* q0, const float* init, float* tau_ref,
@@ -257,21 +594,37 @@ int dyn_prologue_f64(const Tree<double>* tr, const double* q0, const double* ini
   return launch_prologue(tr, q0, init, tau_ref, H0, a0, H, precond, B, stream);
 }
 
-int dyn_solve_f32(const Tree<float>* tr, const Chain<float>* ch, const DynSolveParams* P,
-                  const float* q0, const float* qd0, const float* tau_ref, const float* goal,
-                  const float* a0, const float* H0, const float* bc, float* tau_out, float* costs,
-                  float* a, float* m, float* v, float* tau_s, float* qs, float* qds, float* ps,
-                  int64_t B, void* stream) {
+int dyn_solve_f32(int variant, const Tree<float>* tr, const Chain<float>* ch,
+                  const DynSolveParams* P, const float* q0, const float* qd0, const float* tau_ref,
+                  const float* goal, const float* a0, const float* H0, const float* bc,
+                  float* tau_out, float* costs, float* a, float* m, float* v, float* tau_s,
+                  float* qs, float* qds, float* jtg, float* fac, int64_t B, void* stream) {
   auto s = (cudaStream_t)stream;
-  if (tr->n <= 16 && tr->D <= 16)
-    dyn_solve_kernel<16, 16><<<blocks_for(B), kThreads, 0, s>>>(
-        *tr, *ch, *P, q0, qd0, tau_ref, goal, a0, H0, bc, tau_out, costs, a, m, v, tau_s, qs, qds,
-        ps, B);
-  else
-    dyn_solve_kernel<32, 32><<<blocks_for(B), kThreads, 0, s>>>(
-        *tr, *ch, *P, q0, qd0, tau_ref, goal, a0, H0, bc, tau_out, costs, a, m, v, tau_s, qs, qds,
-        ps, B);
-  return int(cudaGetLastError());
+  auto run = [&](auto kern) {
+    kern<<<blocks_for(B), kThreads, 0, s>>>(*tr, *ch, *P, q0, qd0, tau_ref, goal, a0, H0, bc, tau_out,
+                                            costs, a, m, v, tau_s, qs, qds, jtg, fac, B);
+    return int(cudaGetLastError());
+  };
+  auto run_pair = [&](auto kern, size_t shm) {
+    if (shm > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(shm));
+      if (e != cudaSuccess) return int(e);
+    }
+    const unsigned blocks = unsigned((B + kPairLanes - 1) / kPairLanes);
+    kern<<<blocks, 2 * kPairLanes, shm, s>>>(*tr, *ch, *P, q0, qd0, tau_ref, goal, a0, H0, bc,
+                                              tau_out, costs, a, m, v, tau_s, qs, qds, jtg, fac, B);
+    return int(cudaGetLastError());
+  };
+  switch (variant) {
+    case DRM_GENERIC16: return run(dyn_solve_kernel<DrmGeneric<16>>);
+    case DRM_GENERIC32: return run(dyn_solve_kernel<DrmGeneric<32>>);
+    case DRM_SERIAL_9_7:
+      return run_pair(dyn_solve_pair_kernel<DrmSerial<9, 7>>, pair_shared_bytes<DrmSerial<9, 7>>());
+    case DRM_SERIAL_4_2:
+      return run_pair(dyn_solve_pair_kernel<DrmSerial<4, 2>>, pair_shared_bytes<DrmSerial<4, 2>>());
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -22,8 +22,16 @@
 // RNEA partials come from 2D forward sweeps of the RNEA code on dual
 // numbers, one tangent each: more operations than one reverse sweep, and
 // the simplest form to hold against its plain version
-// (ops/kernels/rollout.py `StepReplay`).
+// (ops/kernels/rollout.py `StepReplay`). K5-K8, `rnea_bwd` and the
+// prologue run these functions.
+//
+// K9 and K10 run the register-resident step at the end of this file
+// (`drm_rr_*`): the same arithmetic on a topology policy that fixes a
+// serial chain's shape at compile time, with the RNEA partials of K9's
+// adjoint from one reverse sweep (`drm_rr_rnea_vjp`).
 #pragma once
+
+#include <cstdint>
 
 #include "chain.cuh"
 
@@ -142,6 +150,12 @@ __device__ __forceinline__ T drm_clip_grad(T x, T lo, T hi) {
   const T y = x < lo ? lo : x;
   const T g_min = y < hi ? T(1) : (y == hi ? T(0.5) : T(0));
   return g_max * g_min;
+}
+
+template <int K, typename T>
+__device__ __forceinline__ void drm_copy(const T* from, T* to) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) to[i] = from[i];
 }
 
 // ---- the sweeps --------------------------------------------------------------
@@ -510,4 +524,655 @@ __device__ void drm_fd_step_adjoint(const Tree<T>& tr, const T* q, const T* qd, 
     gq[d] = gqn[d] - jac[d];
     gqd[d] = gx[d] - jac[D + d];
   }
+}
+
+// ---- the register-resident step (K9 dyn_solve, K10 mppi_solve) ---------------
+//
+// The functions below take the robot's topology from a policy P: the link
+// and dof counts, each link's parent, joint type and dof, each dof's link
+// and the ancestor relation. `DrmSerial<NL, ND>` fixes them at compile
+// time for a serial chain of NL links whose links 1..ND carry revolute dofs
+// 0..ND-1 (link l's parent l - 1) and whose links ND+1..NL-1 are fixed
+// (iiwa, panda_no_gripper and fetch_arm: 9 and 7; the 2-link robot: 4 and
+// 2). Its loops unroll fully and every per-link array is indexed by
+// constants, so the compiler keeps them in registers and reads each
+// `tr.link[l]` constant from the parameter bank; the constants still come
+// from the by-value `Tree<T>`, so one build serves every robot of that
+// shape. `DrmGeneric<CAP>` reads the topology from the tree at run time,
+// for any robot of up to CAP links and dofs; its arrays live in local
+// memory as the functions above do. ops/kernels/solver.py `kernel_variant`
+// picks the policy.
+
+template <int NL_, int ND_>
+struct DrmSerial {
+  static constexpr int NL = NL_, ND = ND_;
+  static constexpr bool serial = true;
+  template <typename T> __device__ __forceinline__ static int links(const Tree<T>&) { return NL; }
+  template <typename T> __device__ __forceinline__ static int dofs(const Tree<T>&) { return ND; }
+  template <typename T> __device__ __forceinline__ static int parent(const Tree<T>&, int l) { return l - 1; }
+  template <typename T>
+  __device__ __forceinline__ static int type(const Tree<T>&, int l) {
+    return l >= 1 && l <= ND ? DRM_REVOLUTE : DRM_FIXED;
+  }
+  template <typename T> __device__ __forceinline__ static int dof(const Tree<T>&, int l) { return l - 1; }
+  template <typename T>
+  __device__ __forceinline__ static int dof_link(const Tree<T>&, int j) { return j + 1; }
+  template <typename T>
+  __device__ __forceinline__ static bool anc(const Tree<T>&, int j, int i) { return i <= j; }
+};
+
+template <int CAP>
+struct DrmGeneric {
+  static constexpr int NL = CAP, ND = CAP;
+  static constexpr bool serial = false;
+  template <typename T> __device__ __forceinline__ static int links(const Tree<T>& tr) { return tr.n; }
+  template <typename T> __device__ __forceinline__ static int dofs(const Tree<T>& tr) { return tr.D; }
+  template <typename T>
+  __device__ __forceinline__ static int parent(const Tree<T>& tr, int l) { return tr.link[l].parent; }
+  template <typename T>
+  __device__ __forceinline__ static int type(const Tree<T>& tr, int l) { return tr.link[l].type; }
+  template <typename T>
+  __device__ __forceinline__ static int dof(const Tree<T>& tr, int l) { return tr.link[l].dof; }
+  template <typename T>
+  __device__ __forceinline__ static int dof_link(const Tree<T>& tr, int j) { return tr.dof_link[j]; }
+  template <typename T>
+  __device__ __forceinline__ static bool anc(const Tree<T>& tr, int j, int i) {
+    return (tr.anc[j] >> i) & 1u;
+  }
+};
+
+// Every link's local transform (R, t) at q.
+template <typename T, class P>
+__device__ __forceinline__ void drm_rr_local(const Tree<T>& tr, const T* q, T (*R)[9], T (*t)[3]) {
+#pragma unroll
+  for (int l = 1; l < P::links(tr); ++l) {
+    const TreeLink<T>& L = tr.link[l];
+    const int ty = P::type(tr, l);
+    const T qv = ty == DRM_FIXED ? T(0) : q[P::dof(tr, l)];
+    if (ty == DRM_REVOLUTE) {
+      T s, c, J[9];
+      drm_sincos(qv, &s, &c);
+      drm_rodrigues(L.a, c, s, J);
+      drm_mat3(L.F, J, R[l]);
+    } else {
+      drm_copy<9>(L.F, R[l]);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) t[l][i] = ty == DRM_PRISMATIC ? L.Fa[i] * qv + L.t[i] : L.t[i];
+  }
+}
+
+// A link's motion carried from its parent's frame into its own, before its
+// joint's: w_c = R^T w_p, dw_c = R^T dw_p, dv_c = R^T (dv_p + (dw_p x t +
+// w_p x (w_p x t))) (ops/dynamics_scalar.py `_motion`).
+template <typename T>
+__device__ __forceinline__ void drm_rr_motion(const T* R, const T* t, const T* wp, const T* dwp,
+                                              const T* dvp, T* w_c, T* dw_c, T* dv_c) {
+  T c1[3], c2[3], c3[3], acc[3];
+  drm_rot_t(R, wp, w_c);
+  drm_rot_t(R, dwp, dw_c);
+  drm_cross(dwp, t, c1);
+  drm_cross(wp, t, c2);
+  drm_cross(wp, c2, c3);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) acc[i] = dvp[i] + (c1[i] + c3[i]);
+  drm_rot_t(R, acc, dv_c);
+}
+
+// Link L's own force f = m (dv + (dw x c + w x (w x c))) and moment about
+// its origin n = (I dw + w x I w) + c x f (`_link_force`).
+template <typename T>
+__device__ __forceinline__ void drm_rr_force(const TreeLink<T>& L, const T* w, const T* dw,
+                                             const T* dv, T* f, T* n) {
+  T wc[3], wwc[3], dwc[3], Idw[3], Iw[3], wIw[3], cf[3];
+  drm_cross(dw, L.com, dwc);
+  drm_cross(w, L.com, wc);
+  drm_cross(w, wc, wwc);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) f[i] = (dv[i] + (dwc[i] + wwc[i])) * L.mass;
+  drm_symm(L.I6, dw, Idw);
+  drm_symm(L.I6, w, Iw);
+  drm_cross(w, Iw, wIw);
+  drm_cross(L.com, f, cf);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) n[i] = (Idw[i] + wIw[i]) + cf[i];
+}
+
+// The RNEA's sweeps kept for its reverse: per link its motion w, dw, dv and,
+// after `drm_rr_rnea`, the force and moment totals f, n of its subtree.
+template <typename T, class P>
+struct DrmRneaState {
+  T w[P::NL][3], dw[P::NL][3], dv[P::NL][3], f[P::NL][3], n[P::NL][3];
+};
+
+// RNEA from the local transforms, tau = M(q) qdd + C(q, qd) qd + g(q) (+ d
+// qd with damping), keeping its sweeps in st. The forward sweep computes
+// each link's own force as soon as its motion is known, so that a serial
+// chain holds only the running motion when no reverse follows.
+template <typename T, class P>
+__device__ __forceinline__ void drm_rr_rnea(const Tree<T>& tr, const T (*R)[9], const T (*t)[3],
+                                            const T* qd, const T* qdd, DrmRneaState<T, P>& st,
+                                            T* tau) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) st.w[0][i] = st.dw[0][i] = st.dv[0][i] = st.f[0][i] = st.n[0][i] = T(0);
+  st.dv[0][2] = tr.gravity;
+#pragma unroll
+  for (int l = 1; l < P::links(tr); ++l) {
+    const TreeLink<T>& L = tr.link[l];
+    const int par = P::parent(tr, l), ty = P::type(tr, l);
+    T w_c[3], dw_c[3], dv_c[3];
+    drm_rr_motion(R[l], t[l], st.w[par], st.dw[par], st.dv[par], w_c, dw_c, dv_c);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      st.w[l][i] = w_c[i];
+      st.dw[l][i] = dw_c[i];
+      st.dv[l][i] = dv_c[i];
+    }
+    if (ty != DRM_FIXED) {
+      const int d = P::dof(tr, l);
+      T j[3], wxj[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) j[i] = L.a[i] * qd[d];
+      drm_cross(w_c, j, wxj);
+      if (ty == DRM_REVOLUTE) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          st.w[l][i] = w_c[i] + j[i];
+          st.dw[l][i] = dw_c[i] + (L.a[i] * qdd[d] + wxj[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) st.dv[l][i] = dv_c[i] + (L.a[i] * qdd[d] + wxj[i] * T(2));
+      }
+    }
+    drm_rr_force(L, st.w[l], st.dw[l], st.dv[l], st.f[l], st.n[l]);
+  }
+#pragma unroll
+  for (int l = P::links(tr) - 1; l >= 1; --l) {
+    const TreeLink<T>& L = tr.link[l];
+    const int par = P::parent(tr, l), ty = P::type(tr, l);
+    if (ty == DRM_REVOLUTE)
+      tau[P::dof(tr, l)] = L.a[0] * st.n[l][0] + L.a[1] * st.n[l][1] + L.a[2] * st.n[l][2];
+    else if (ty == DRM_PRISMATIC)
+      tau[P::dof(tr, l)] = L.a[0] * st.f[l][0] + L.a[1] * st.f[l][1] + L.a[2] * st.f[l][2];
+    T f_p[3], Rn[3], tf[3];
+    drm_rot_s(R[l], st.f[l], f_p);
+    drm_rot_s(R[l], st.n[l], Rn);
+    drm_cross(t[l], f_p, tf);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      st.f[par][i] = st.f[par][i] + f_p[i];
+      st.n[par][i] = st.n[par][i] + (Rn[i] + tf[i]);
+    }
+  }
+  if (tr.use_damping) {
+#pragma unroll
+    for (int d = 0; d < P::dofs(tr); ++d) tau[d] = tau[d] + tr.damping[d] * qd[d];
+  }
+}
+
+// What the RNEA's reverse sweep reads of its forward: per link the local
+// transform (R, t) and the sweeps' state, kept in the thread's own arrays.
+// `DrmSharedRnea` (below) keeps the same in shared memory instead.
+template <typename T, class P>
+struct DrmLocalRnea {
+  T R[P::NL][9], t[P::NL][3];
+  DrmRneaState<T, P> st;
+  __device__ __forceinline__ void rot(int l, T* x) const { drm_copy<9>(R[l], x); }
+  __device__ __forceinline__ void trans(int l, T* x) const { drm_copy<3>(t[l], x); }
+  __device__ __forceinline__ void w(int l, T* x) const { drm_copy<3>(st.w[l], x); }
+  __device__ __forceinline__ void dw(int l, T* x) const { drm_copy<3>(st.dw[l], x); }
+  __device__ __forceinline__ void dv(int l, T* x) const { drm_copy<3>(st.dv[l], x); }
+  __device__ __forceinline__ void f(int l, T* x) const { drm_copy<3>(st.f[l], x); }
+  __device__ __forceinline__ void n(int l, T* x) const { drm_copy<3>(st.n[l], x); }
+};
+
+// (∂RNEA(q, qd, qdd)/∂(q, qd))ᵀ lam into jac[2D] (jac[k] the q_k partial,
+// jac[D + k] the qd_k one), with the tree's gravity and damping, by one
+// reverse sweep of the RNEA whose forward `s` holds (`DrmLocalRnea` or
+// `DrmSharedRnea`): the plain version's arithmetic
+// (ops/dynamics_scalar.py `rnea_vjp_scalar`, whose docstring gives the
+// identities), line for line. Both partials go into the one array `jac`,
+// the form nvcc 12.9 compiles correctly for `drm_rnea_vjp` (F5).
+template <typename T, class P, class S>
+__device__ __forceinline__ void drm_rr_rnea_reverse(const Tree<T>& tr, const S& s, const T* qd,
+                                                    const T* lam, T* jac) {
+  constexpr int NL = P::NL;
+  const int n = P::links(tr), D = P::dofs(tr);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    jac[d] = T(0);
+    jac[D + d] = tr.use_damping ? tr.damping[d] * lam[d] : T(0);
+  }
+  // the backward sweep's reverse, root -> tip: fb, nb the cotangents of the
+  // totals f, n
+  T fb[NL][3], nb[NL][3], tb[NL][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) fb[0][i] = nb[0][i] = T(0);
+#pragma unroll
+  for (int l = 1; l < n; ++l) {
+    const TreeLink<T>& L = tr.link[l];
+    const int par = P::parent(tr, l), ty = P::type(tr, l);
+    T R[9], t[3], u[3], nt[3];
+    s.rot(l, R);
+    s.trans(l, t);
+    drm_cross(nb[par], t, nt);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) u[i] = fb[par][i] + nt[i];
+    drm_rot_t(R, u, fb[l]);
+    drm_rot_t(R, nb[par], nb[l]);
+    T fl[3];
+    s.f(l, fl);
+    if (ty == DRM_REVOLUTE) {
+      const int d = P::dof(tr, l);
+      T nl[3], x[3], y[3];
+      s.n(l, nl);
+      drm_cross(fl, fb[l], x);
+      drm_cross(nl, nb[l], y);
+      jac[d] = jac[d] + (L.a[0] * (x[0] + y[0]) + L.a[1] * (x[1] + y[1]) + L.a[2] * (x[2] + y[2]));
+#pragma unroll
+      for (int i = 0; i < 3; ++i) nb[l][i] = nb[l][i] + L.a[i] * lam[d];
+    } else if (ty == DRM_PRISMATIC) {
+      T f_p[3];
+      drm_rot_s(R, fl, f_p);
+      drm_cross(f_p, nb[par], tb[l]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) fb[l][i] = fb[l][i] + L.a[i] * lam[P::dof(tr, l)];
+    }
+  }
+  // the forward sweep's reverse, tip -> root: wb, dwb, dvb gather the
+  // children's cotangents, then each link adds its force reverse
+  // (`_link_force_vjp`) and passes its motion's on to its parent
+  T wb[NL][3], dwb[NL][3], dvb[NL][3];
+#pragma unroll
+  for (int l = 0; l < n; ++l)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) wb[l][i] = dwb[l][i] = dvb[l][i] = T(0);
+#pragma unroll
+  for (int l = n - 1; l >= 1; --l) {
+    const TreeLink<T>& L = tr.link[l];
+    const int par = P::parent(tr, l), ty = P::type(tr, l);
+    T R[9], t[3], wl[3], wp[3], dwp[3], dvp[3];
+    s.rot(l, R);
+    s.trans(l, t);
+    s.w(l, wl);
+    s.w(par, wp);
+    s.dw(par, dwp);
+    s.dv(par, dvp);
+    {
+      T fc[3], acb[3], ca[3], Inb[3], wc[3], x1[3], aw[3], x2[3], Iw[3], x3[3], nw[3], x4[3];
+      drm_cross(nb[l], L.com, fc);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) acb[i] = (fb[l][i] + fc[i]) * L.mass;
+      drm_cross(L.com, acb, ca);
+      drm_symm(L.I6, nb[l], Inb);
+      drm_cross(wl, L.com, wc);
+      drm_cross(wc, acb, x1);
+      drm_cross(acb, wl, aw);
+      drm_cross(L.com, aw, x2);
+      drm_symm(L.I6, wl, Iw);
+      drm_cross(Iw, nb[l], x3);
+      drm_cross(nb[l], wl, nw);
+      drm_symm(L.I6, nw, x4);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        wb[l][i] = wb[l][i] + ((x1[i] + x2[i]) + (x3[i] + x4[i]));
+        dwb[l][i] = dwb[l][i] + (ca[i] + Inb[i]);
+        dvb[l][i] = dvb[l][i] + acb[i];
+      }
+    }
+    T w_c[3], dw_c[3], dv_c[3], wcb[3];
+    drm_rr_motion(R, t, wp, dwp, dvp, w_c, dw_c, dv_c);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) wcb[i] = wb[l][i];
+    if (ty != DRM_FIXED) {
+      const int d = P::dof(tr, l);
+      T j[3], x[3], jb[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) j[i] = L.a[i] * qd[d];
+      if (ty == DRM_REVOLUTE) {
+        drm_cross(dwb[l], w_c, x);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) jb[i] = wb[l][i] + x[i];
+        drm_cross(j, dwb[l], x);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) wcb[i] = wb[l][i] + x[i];
+        T y1[3], y2[3], y3[3];
+        drm_cross(wcb, w_c, y1);
+        drm_cross(dwb[l], dw_c, y2);
+        drm_cross(dvb[l], dv_c, y3);
+        jac[d] = jac[d] + (L.a[0] * ((y1[0] + y2[0]) + y3[0]) + L.a[1] * ((y1[1] + y2[1]) + y3[1]) +
+                           L.a[2] * ((y1[2] + y2[2]) + y3[2]));
+      } else {
+        drm_cross(dvb[l], w_c, x);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) jb[i] = x[i] * T(2);
+        drm_cross(j, dvb[l], x);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) wcb[i] = wb[l][i] + x[i] * T(2);
+      }
+      jac[D + d] = jac[D + d] + (L.a[0] * jb[0] + L.a[1] * jb[1] + L.a[2] * jb[2]);
+    }
+    T accb[3], c2[3], c2b[3], Rw[3], Rdw[3], x1[3], x2[3], x3[3];
+    drm_rot_s(R, dvb[l], accb);
+    drm_cross(accb, wp, c2b);
+    drm_rot_s(R, wcb, Rw);
+    drm_cross(wp, t, c2);
+    drm_cross(c2, accb, x1);
+    drm_cross(t, c2b, x2);
+    drm_rot_s(R, dwb[l], Rdw);
+    drm_cross(t, accb, x3);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      wb[par][i] = wb[par][i] + (Rw[i] + (x1[i] + x2[i]));
+      dwb[par][i] = dwb[par][i] + (Rdw[i] + x3[i]);
+      dvb[par][i] = dvb[par][i] + accb[i];
+    }
+    if (ty == DRM_PRISMATIC) {
+      T y1[3], y2[3];
+      drm_cross(accb, dwp, y1);
+      drm_cross(c2b, wp, y2);
+      const int d = P::dof(tr, l);
+      jac[d] = jac[d] + (L.Fa[0] * (tb[l][0] + (y1[0] + y2[0])) + L.Fa[1] * (tb[l][1] + (y1[1] + y2[1])) +
+                         L.Fa[2] * (tb[l][2] + (y1[2] + y2[2])));
+    }
+  }
+}
+
+// `drm_rr_rnea_reverse` of the RNEA at (q, qd, qdd), computed here.
+template <typename T, class P>
+__device__ __forceinline__ void drm_rr_rnea_vjp(const Tree<T>& tr, const T* q, const T* qd,
+                                                const T* qdd, const T* lam, T* jac) {
+  DrmLocalRnea<T, P> s;
+  T tau[P::ND];
+  drm_rr_local<T, P>(tr, q, s.R, s.t);
+  drm_rr_rnea<T, P>(tr, s.R, s.t, qd, qdd, s.st, tau);
+  drm_rr_rnea_reverse<T, P>(tr, s, qd, lam, jac);
+}
+
+// The same forward in shared memory, one thread's values `LANES` floats
+// apart (lane-strided, so that a warp's accesses fall in distinct banks): per
+// link R (9), then w, dw, dv, f, n (3 each). For a serial policy, whose
+// links' translations are constants.
+template <typename T, class P, int LANES>
+struct DrmSharedRnea {
+  static_assert(P::serial, "shared-memory state is laid out for a serial chain");
+  static constexpr int NL = P::NL;
+  static constexpr int kR = 0, kW = 9 * NL, kDW = kW + 3 * NL, kDV = kDW + 3 * NL,
+                       kF = kDV + 3 * NL, kN = kF + 3 * NL, kSize = kN + 3 * NL;
+  T* base;  // this thread's first value
+  const Tree<T>& tr;
+  __device__ __forceinline__ void get(int at, int k, T* x) const {
+#pragma unroll
+    for (int i = 0; i < k; ++i) x[i] = base[(at + i) * LANES];
+  }
+  __device__ __forceinline__ void put(int at, int k, const T* x) const {
+#pragma unroll
+    for (int i = 0; i < k; ++i) base[(at + i) * LANES] = x[i];
+  }
+  __device__ __forceinline__ void rot(int l, T* x) const { get(kR + 9 * l, 9, x); }
+  __device__ __forceinline__ void trans(int l, T* x) const { drm_copy<3>(tr.link[l].t, x); }
+  __device__ __forceinline__ void w(int l, T* x) const { get(kW + 3 * l, 3, x); }
+  __device__ __forceinline__ void dw(int l, T* x) const { get(kDW + 3 * l, 3, x); }
+  __device__ __forceinline__ void dv(int l, T* x) const { get(kDV + 3 * l, 3, x); }
+  __device__ __forceinline__ void f(int l, T* x) const { get(kF + 3 * l, 3, x); }
+  __device__ __forceinline__ void n(int l, T* x) const { get(kN + 3 * l, 3, x); }
+  // stores the RNEA of `drm_rr_rnea_vjp` at (q, qd, qdd)
+  __device__ __forceinline__ void compute(const T* q, const T* qd, const T* qdd) const {
+    DrmLocalRnea<T, P> s;
+    T tau[P::ND];
+    drm_rr_local<T, P>(tr, q, s.R, s.t);
+    drm_rr_rnea<T, P>(tr, s.R, s.t, qd, qdd, s.st, tau);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      put(kR + 9 * l, 9, s.R[l]);
+      put(kW + 3 * l, 3, s.st.w[l]);
+      put(kDW + 3 * l, 3, s.st.dw[l]);
+      put(kDV + 3 * l, 3, s.st.dv[l]);
+      put(kF + 3 * l, 3, s.st.f[l]);
+      put(kN + 3 * l, 3, s.st.n[l]);
+    }
+  }
+};
+
+// World-frame composite-rigid-body mass matrix M(q) into the packed lower
+// triangle Hm: `drm_crb`'s arithmetic, with each joint's subspace formed as
+// soon as its link's world pose is known, so that a serial chain holds only
+// the running pose.
+template <typename T, class P>
+__device__ __forceinline__ void drm_rr_crb(const Tree<T>& tr, const T (*Rl)[9], const T (*tl)[3],
+                                           T* Hm) {
+  constexpr int NL = P::NL, ND = P::ND;
+  const int n = P::links(tr), D = P::dofs(tr);
+  T Rw[NL][9], pw[NL][3], m_c[NL], h_c[NL][3], I_c[NL][6], S_w[ND][6];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) Rw[0][i] = (i % 4 == 0) ? T(1) : T(0);
+  pw[0][0] = pw[0][1] = pw[0][2] = T(0);
+#pragma unroll
+  for (int l = 1; l < n; ++l) {
+    const TreeLink<T>& L = tr.link[l];
+    const int par = P::parent(tr, l), ty = P::type(tr, l);
+    T d[3];
+    drm_rot(Rw[par], tl[l], d);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pw[l][i] = pw[par][i] + d[i];
+    drm_mat3(Rw[par], Rl[l], Rw[l]);
+    T rc[3], cw[3];
+    drm_rot(Rw[l], L.com, rc);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) cw[i] = pw[l][i] + rc[i];
+    const T* R = Rw[l];
+    T rows[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const T r[3] = {R[3 * i], R[3 * i + 1], R[3 * i + 2]};
+      drm_symm(L.I6, r, rows[i]);
+    }
+    auto entry = [&](int i, int j) {
+      return rows[i][0] * R[3 * j] + rows[i][1] * R[3 * j + 1] + rows[i][2] * R[3 * j + 2];
+    };
+    const T m = L.mass, cx = cw[0], cy = cw[1], cz = cw[2];
+    I_c[l][0] = entry(0, 0) + m * (cy * cy + cz * cz);
+    I_c[l][1] = entry(0, 1) - m * cx * cy;
+    I_c[l][2] = entry(0, 2) - m * cx * cz;
+    I_c[l][3] = entry(1, 1) + m * (cx * cx + cz * cz);
+    I_c[l][4] = entry(1, 2) - m * cy * cz;
+    I_c[l][5] = entry(2, 2) + m * (cx * cx + cy * cy);
+    m_c[l] = m;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) h_c[l][i] = cw[i] * m;
+    if (ty != DRM_FIXED) {
+      T* S = S_w[P::dof(tr, l)];
+      T z[3];
+      drm_rot(R, L.a, z);
+      if (ty == DRM_REVOLUTE) {
+        T pz[3];
+        drm_cross(pw[l], z, pz);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          S[i] = z[i];
+          S[3 + i] = pz[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          S[i] = T(0);
+          S[3 + i] = z[i];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int l = n - 1; l >= 2; --l) {
+    const int par = P::parent(tr, l);
+    if (par == 0) continue;
+    m_c[par] = m_c[par] + m_c[l];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) h_c[par][i] = h_c[par][i] + h_c[l][i];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) I_c[par][i] = I_c[par][i] + I_c[l][i];
+  }
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const int lj = P::dof_link(tr, j);
+    const T* wv = S_w[j];
+    const T* vv = S_w[j] + 3;
+    T Iw[3], hv[3], hw[3], nn[3], f[3];
+    drm_symm(I_c[lj], wv, Iw);
+    drm_cross(h_c[lj], vv, hv);
+    drm_cross(h_c[lj], wv, hw);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      nn[k] = Iw[k] + hv[k];
+      f[k] = vv[k] * m_c[lj] - hw[k];
+    }
+#pragma unroll
+    for (int i = 0; i <= j; ++i) {
+      const T* wi = S_w[i];
+      const T* vi = S_w[i] + 3;
+      Hm[drm_tri(j, i)] = P::anc(tr, j, i) ? (wi[0] * nn[0] + wi[1] * nn[1] + wi[2] * nn[2]) +
+                                                 (vi[0] * f[0] + vi[1] * f[1] + vi[2] * f[2])
+                                           : T(0);
+    }
+  }
+}
+
+// In-place LDL^T of the packed lower triangle (`drm_ldl_factor`) and the
+// solve with it (`drm_ldl_solve`), with the dof loops unrolled for P.
+template <typename T, class P>
+__device__ __forceinline__ void drm_rr_ldl_factor(const Tree<T>& tr, T* Hm, T* dg) {
+  const int D = P::dofs(tr);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    T s = Hm[drm_tri(j, j)];
+#pragma unroll
+    for (int k = 0; k < j; ++k) s = s - Hm[drm_tri(j, k)] * Hm[drm_tri(j, k)] * dg[k];
+    dg[j] = s;
+    const T inv = T(1) / s;
+#pragma unroll
+    for (int i = j + 1; i < D; ++i) {
+      T s2 = Hm[drm_tri(i, j)];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s2 = s2 - Hm[drm_tri(i, k)] * Hm[drm_tri(j, k)] * dg[k];
+      Hm[drm_tri(i, j)] = s2 * inv;
+    }
+  }
+}
+
+template <typename T, class P>
+__device__ __forceinline__ void drm_rr_ldl_solve(const Tree<T>& tr, const T* Lf, const T* dg,
+                                                 const T* b, T* x) {
+  const int D = P::dofs(tr);
+  T z[P::ND];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    T s = b[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = s - Lf[drm_tri(i, k)] * z[k];
+    z[i] = s;
+  }
+#pragma unroll
+  for (int i = D - 1; i >= 0; --i) {
+    T s = z[i] / dg[i];
+#pragma unroll
+    for (int k = i + 1; k < D; ++k) s = s - Lf[drm_tri(k, i)] * x[k];
+    x[i] = s;
+  }
+}
+
+// `drm_fd_accel` on the policy: qdd = Ĥ⁻¹ (tau - nle(q, qd)), Ĥ's factor
+// left in (Lf, dg).
+template <typename T, class P>
+__device__ __forceinline__ void drm_rr_fd_accel(const Tree<T>& tr, const T* q, const T* qd,
+                                                const T* tau, T* Lf, T* dg, T* qdd) {
+  constexpr int NL = P::NL, ND = P::ND;
+  const int D = P::dofs(tr);
+  T R[NL][9], t[NL][3], zero[ND], nle[ND], b[ND];
+  drm_rr_local<T, P>(tr, q, R, t);
+#pragma unroll
+  for (int d = 0; d < D; ++d) zero[d] = T(0);
+  {
+    DrmRneaState<T, P> st;
+    drm_rr_rnea<T, P>(tr, R, t, qd, zero, st, nle);
+  }
+  drm_rr_crb<T, P>(tr, R, t, Lf);
+  if (tr.use_damping) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) Lf[drm_tri(d, d)] = Lf[drm_tri(d, d)] + tr.dt_damping[d];
+  }
+  drm_rr_ldl_factor<T, P>(tr, Lf, dg);
+#pragma unroll
+  for (int d = 0; d < D; ++d) b[d] = tau[d] - nle[d];
+  drm_rr_ldl_solve<T, P>(tr, Lf, dg, b, qdd);
+}
+
+// The semi-implicit Euler step with the velocity clamp from qdd
+// (`drm_fd_step`'s last loop).
+template <typename T, class P>
+__device__ __forceinline__ void drm_rr_euler(const Tree<T>& tr, const T* q, const T* qd,
+                                             const T* qdd, T* qn, T* qdn) {
+#pragma unroll
+  for (int d = 0; d < P::dofs(tr); ++d) {
+    const T x = drm_clip(qd[d] + tr.dt * qdd[d], -tr.vmax[d], tr.vmax[d]);
+    qdn[d] = x;
+    qn[d] = q[d] + tr.dt * x;
+  }
+}
+
+// The ee position after a chain sweep (`drm_chain_sweep`) on a serial
+// chain: chain link k is the tree's link k + 1, revolute with dof k for
+// k < ND and fixed after, so the dof indices are constants.
+template <typename T, class P, typename Rec>
+__device__ __forceinline__ void drm_rr_chain_sweep(const Chain<T>& ch, const T* q, Rec rec, T pw[3]) {
+  static_assert(P::serial, "the generic policy takes drm_chain_sweep");
+  T Rw[9] = {T(1), T(0), T(0), T(0), T(1), T(0), T(0), T(0), T(1)};
+  pw[0] = pw[1] = pw[2] = T(0);
+#pragma unroll
+  for (int k = 0; k < P::NL - 1; ++k) {
+    if (k >= ch.n) break;
+    const ChainLink<T>& L = ch.link[k];
+    const bool rev = k < P::ND;
+    T R[9];
+    if (rev) {
+      T s, c, J[9];
+      drm_sincos(q[k], &s, &c);
+      drm_rodrigues(L.a, c, s, J);
+      drm_mat3(L.F, J, R);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) R[i] = L.F[i];
+    }
+    T z[3], dt[3];
+    if (rev) drm_rot(Rw, L.Fa, z);
+    drm_rot(Rw, L.t, dt);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pw[i] += dt[i];
+    if (rev) rec(DRM_REVOLUTE, k, z, pw);
+    T Rn[9];
+    drm_mat3(Rw, R, Rn);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) Rw[i] = Rn[i];
+  }
+}
+
+// The ee position after a chain sweep at q for policy P: the serial sweep
+// above, or `drm_chain_sweep` for the generic policy.
+template <typename T, class P, typename Rec>
+__device__ __forceinline__ void drm_rr_ee(const Chain<T>& ch, const T* q, Rec rec, T pw[3]) {
+  if constexpr (P::serial)
+    drm_rr_chain_sweep<T, P>(ch, q, rec, pw);
+  else
+    drm_chain_sweep(ch, [&](int d) { return q[d]; }, rec, pw);
+}
+
+// The instantiations of K9 and K10, by the code ops/kernels/solver.py
+// `kernel_variant` passes.
+enum DrmVariant { DRM_GENERIC16 = 0, DRM_GENERIC32 = 1, DRM_SERIAL_9_7 = 2, DRM_SERIAL_4_2 = 3 };
+
+// (links, dofs) of DRM_SERIAL_9_7 and DRM_SERIAL_4_2, for the Python side's check.
+inline void drm_variant_shapes(int64_t* out) {
+  out[0] = 9;
+  out[1] = 7;
+  out[2] = 4;
+  out[3] = 2;
 }

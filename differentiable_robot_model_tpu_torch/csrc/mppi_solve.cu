@@ -4,7 +4,7 @@
 // Replaces the JAX package's ops/pallas/solver.py `_mppi_solve_kernel`
 // (wrapper `mppi_solve_fused`). Per scenario, n_iters times: K perturbed
 // action sequences a + eps (sample 0 the unperturbed nominal), each rolled
-// out through H semi-implicit Euler forward-dynamics steps (`drm_fd_step`)
+// out through H semi-implicit Euler forward-dynamics steps (dyn_step.cuh)
 // of tau = tau_ref + H0 (a + eps) (clipped to the effort box with
 // `effort`) with the ee position after each (`drm_chain_sweep`), the cost
 // cgoal_w sum |p - goal|^2 + ceff_w sum |H0 (a + eps)|^2 (compensated
@@ -30,10 +30,14 @@
 // Bound on the H100: per scenario, iteration and sample H folded FD steps
 // with the ee FK, a few thousand FP32 operations per step for iiwa, over a
 // few kilobytes of inputs and outputs per scenario: operations bound it.
-// One thread runs each sample's 50-step rollout with the per-link state in
-// local memory, and at B=256, K=128 the card holds only 8 warps per SM, so
-// each thread's dependent chain sets the time, as in K5-K9. Blocks of more
-// than 256 threads (K > 256) are built for 64 registers a thread.
+// One thread runs each sample's 50-step rollout, and at B=256, K=128 the
+// card holds only 8 warps per SM, so each thread's dependent chain sets the
+// time. For a serial chain the rollout runs the register-resident step and
+// chain FK of dyn_step.cuh (`DrmSerial`: the shape fixed at compile time,
+// the per-link state in registers), and blocks of up to 256 threads may use
+// up to 255 registers a thread; trees keep `drm_fd_step` and
+// `drm_chain_sweep` (the 16- and 32-link builds), and blocks of more than
+// 256 threads (K > 256) the generic builds of 64 registers a thread.
 
 #include <cmath>
 #include <cstdint>
@@ -104,7 +108,7 @@ size_t shared_bytes(int H, int D, int threads) {
   return sizeof(T) * (size_t(H) * D + size_t(D) * D + 3 * D + 3 + nw * kChunk + nw);
 }
 
-template <typename T, int NL, int ND, int MAXT>
+template <typename T, class Topo, int MAXT>
 __global__ void __launch_bounds__(MAXT)
     mppi_kernel(const __grid_constant__ Tree<T> tr, const __grid_constant__ Chain<T> ch,
                 const __grid_constant__ MppiParams P, const T* __restrict__ q0,
@@ -112,7 +116,8 @@ __global__ void __launch_bounds__(MAXT)
                 const T* __restrict__ goal, const T* __restrict__ H0, const T* __restrict__ a0,
                 T* __restrict__ tau_out, T* __restrict__ costs, int64_t B) {
   extern __shared__ __align__(16) unsigned char drm_smem[];
-  const int D = tr.D, H = P.H, HD = H * D, nw = int(blockDim.x >> 5);
+  constexpr int ND = Topo::ND;
+  const int D = Topo::dofs(tr), H = P.H, HD = H * D, nw = int(blockDim.x >> 5);
   const int64_t b = blockIdx.x;
   const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
   T* a = reinterpret_cast<T*>(drm_smem);  // [H*D] the nominal, acceleration units
@@ -159,6 +164,7 @@ __global__ void __launch_bounds__(MAXT)
   // The cost of a + eps (eps = 0 unless `noisy`) at iteration t.
   auto rollout = [&](int t, bool noisy) -> T {
     T q[ND], qd[ND];
+#pragma unroll
     for (int d = 0; d < D; ++d) {
       q[d] = q0s[d];
       qd[d] = qd0s[d];
@@ -167,11 +173,14 @@ __global__ void __launch_bounds__(MAXT)
     cached = -1;
     for (int h = 0; h < H; ++h) {
       T av[ND], tc[ND], qn[ND], qdn[ND];
+#pragma unroll
       for (int e = 0; e < D; ++e) av[e] = noisy ? a[h * D + e] + noise(t, h * D + e) : a[h * D + e];
+#pragma unroll
       for (int d = 0; d < D; ++d) {
         T s;
         if (P.precond) {
           s = T(0);
+#pragma unroll
           for (int e = 0; e < D; ++e) s = s + Hs[d * D + e] * av[e];
         } else {
           s = av[d];
@@ -180,13 +189,20 @@ __global__ void __launch_bounds__(MAXT)
         const T tau = trf[d] + s;
         tc[d] = P.effort ? drm_clip(tau, -tr.emax[d], tr.emax[d]) : tau;
       }
-      drm_fd_step<T, NL, ND>(tr, q, qd, tc, qn, qdn);
+      if constexpr (Topo::serial) {
+        T Lf[ND * (ND + 1) / 2], dg[ND], qdd[ND];
+        drm_rr_fd_accel<T, Topo>(tr, q, qd, tc, Lf, dg, qdd);
+        drm_rr_euler<T, Topo>(tr, q, qd, qdd, qn, qdn);
+      } else {
+        drm_fd_step<T, Topo::NL, ND>(tr, q, qd, tc, qn, qdn);
+      }
+#pragma unroll
       for (int d = 0; d < D; ++d) {
         q[d] = qn[d];
         qd[d] = qdn[d];
       }
       T p[3];
-      drm_chain_sweep(ch, [&](int d) { return q[d]; }, DrmNoRecord{}, p);
+      drm_rr_ee<T, Topo>(ch, q, DrmNoRecord{}, p);
       for (int j = 0; j < 3; ++j) {
         const T diff = p[j] - gl[j];
         cg.add(diff * diff);
@@ -195,8 +211,16 @@ __global__ void __launch_bounds__(MAXT)
     return cgoal_w * cg.sum + ceff_w * ce.sum;
   };
 
-  for (int t = 0; t < P.n_iters; ++t) {
-    const T c = rollout(t, perturbed);
+  // Iteration n_iters rolls out the final nominal (thread 0 alone): one call
+  // site of the rollout, so that its unrolled step is emitted once.
+  for (int t = 0;; ++t) {
+    const bool last = t == P.n_iters;
+    if (last && k != 0) break;
+    const T c = rollout(t, perturbed && !last);
+    if (last) {
+      costs[at(t)] = c;
+      break;
+    }
     const T cmin = block_reduce<T, true>(valid ? c : T(INFINITY), red);
     const T w = valid ? drm_exp(-(c - cmin) / temp) : T(0);
     const T Z = block_reduce<T, false>(w, red);
@@ -218,7 +242,6 @@ __global__ void __launch_bounds__(MAXT)
     }
   }
 
-  if (k == 0) costs[at(P.n_iters)] = rollout(P.n_iters, false);
   for (int h = k; h < H; h += blockDim.x) {
     for (int d = 0; d < D; ++d) {
       T s;
@@ -234,13 +257,13 @@ __global__ void __launch_bounds__(MAXT)
   }
 }
 
-template <typename T, int NL, int ND, int MAXT>
+template <typename T, class Topo, int MAXT>
 int launch_one(const Tree<T>* tr, const Chain<T>* ch, const MppiParams* P, const T* q0,
                const T* qd0, const T* tau_ref, const T* goal, const T* H0, const T* a0,
                T* tau_out, T* costs, int64_t B, cudaStream_t s) {
   const int threads = (P->K + 31) / 32 * 32;
   const size_t shm = shared_bytes<T>(P->H, tr->D, threads);
-  auto kern = mppi_kernel<T, NL, ND, MAXT>;
+  auto kern = mppi_kernel<T, Topo, MAXT>;
   if (shm > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(shm));
@@ -251,19 +274,25 @@ int launch_one(const Tree<T>* tr, const Chain<T>* ch, const MppiParams* P, const
   return int(cudaGetLastError());
 }
 
+// Blocks of up to 256 threads take the instantiation `variant` names, with
+// up to 255 registers a thread; wider blocks (K > 256) the generic builds of
+// 64 registers a thread.
 template <typename T>
-int launch(const Tree<T>* tr, const Chain<T>* ch, const MppiParams* P, const T* q0, const T* qd0,
-           const T* tau_ref, const T* goal, const T* H0, const T* a0, T* tau_out, T* costs,
-           int64_t B, void* stream) {
+int launch(int variant, const Tree<T>* tr, const Chain<T>* ch, const MppiParams* P, const T* q0,
+           const T* qd0, const T* tau_ref, const T* goal, const T* H0, const T* a0, T* tau_out,
+           T* costs, int64_t B, void* stream) {
   auto s = (cudaStream_t)stream;
-  const bool small = tr->n <= 16 && tr->D <= 16, wide = P->K > 256;
-  if (small && !wide)
-    return launch_one<T, 16, 16, 256>(tr, ch, P, q0, qd0, tau_ref, goal, H0, a0, tau_out, costs, B, s);
-  if (small)
-    return launch_one<T, 16, 16, 1024>(tr, ch, P, q0, qd0, tau_ref, goal, H0, a0, tau_out, costs, B, s);
-  if (!wide)
-    return launch_one<T, 32, 32, 256>(tr, ch, P, q0, qd0, tau_ref, goal, H0, a0, tau_out, costs, B, s);
-  return launch_one<T, 32, 32, 1024>(tr, ch, P, q0, qd0, tau_ref, goal, H0, a0, tau_out, costs, B, s);
+  auto run = [&](auto one) { return one(tr, ch, P, q0, qd0, tau_ref, goal, H0, a0, tau_out, costs, B, s); };
+  if (P->K > 256)
+    return tr->n <= 16 && tr->D <= 16 ? run(launch_one<T, DrmGeneric<16>, 1024>)
+                                      : run(launch_one<T, DrmGeneric<32>, 1024>);
+  switch (variant) {
+    case DRM_GENERIC16: return run(launch_one<T, DrmGeneric<16>, 256>);
+    case DRM_GENERIC32: return run(launch_one<T, DrmGeneric<32>, 256>);
+    case DRM_SERIAL_9_7: return run(launch_one<T, DrmSerial<9, 7>, 256>);
+    case DRM_SERIAL_4_2: return run(launch_one<T, DrmSerial<4, 2>, 256>);
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 // The Philox words and both normals of each counter column ctr[:, i]: the
@@ -286,28 +315,30 @@ __global__ void rng_probe_kernel(const uint32_t* __restrict__ ctr, uint32_t k0, 
 extern "C" {
 
 // sizeof(Tree<float>), sizeof(Tree<double>), sizeof(Chain<float>),
-// sizeof(Chain<double>), sizeof(MppiParams): the Python side checks its
-// ctypes mirror.
+// sizeof(Chain<double>), sizeof(MppiParams), then the (links, dofs) of each
+// serial instantiation: the Python side checks its ctypes mirror and its
+// variant table.
 void mppi_solve_layout(int64_t* out) {
   out[0] = sizeof(Tree<float>);
   out[1] = sizeof(Tree<double>);
   out[2] = sizeof(Chain<float>);
   out[3] = sizeof(Chain<double>);
   out[4] = sizeof(MppiParams);
+  drm_variant_shapes(out + 5);
 }
 
-int mppi_solve_f32(const Tree<float>* tr, const Chain<float>* ch, const MppiParams* P,
+int mppi_solve_f32(int variant, const Tree<float>* tr, const Chain<float>* ch, const MppiParams* P,
                    const float* q0, const float* qd0, const float* tau_ref, const float* goal,
                    const float* H0, const float* a0, float* tau_out, float* costs, int64_t B,
                    void* stream) {
-  return launch(tr, ch, P, q0, qd0, tau_ref, goal, H0, a0, tau_out, costs, B, stream);
+  return launch(variant, tr, ch, P, q0, qd0, tau_ref, goal, H0, a0, tau_out, costs, B, stream);
 }
 
-int mppi_solve_f64(const Tree<double>* tr, const Chain<double>* ch, const MppiParams* P,
+int mppi_solve_f64(int variant, const Tree<double>* tr, const Chain<double>* ch, const MppiParams* P,
                    const double* q0, const double* qd0, const double* tau_ref, const double* goal,
                    const double* H0, const double* a0, double* tau_out, double* costs, int64_t B,
                    void* stream) {
-  return launch(tr, ch, P, q0, qd0, tau_ref, goal, H0, a0, tau_out, costs, B, stream);
+  return launch(variant, tr, ch, P, q0, qd0, tau_ref, goal, H0, a0, tau_out, costs, B, stream);
 }
 
 int mppi_rng_probe(const uint32_t* ctr, uint32_t k0, uint32_t k1, uint32_t* bits, float* n32,

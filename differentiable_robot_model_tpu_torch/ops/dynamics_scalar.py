@@ -263,6 +263,135 @@ def rnea_scalar(
     return tau
 
 
+def _motion(R, t, w_p, dw_p, dv_p):
+    """A link's velocity and accelerations carried from its parent's frame
+    into its own, before its joint's motion: w_c = Rᵀ w_p, dw_c = Rᵀ dw_p,
+    dv_c = Rᵀ (dv_p + (dw_p × t + w_p × (w_p × t)))."""
+    acc = _add(dv_p, _add(_cross(dw_p, t), _cross(w_p, _cross(w_p, t))))
+    return _rot_t(R, w_p), _rot_t(R, dw_p), _rot_t(R, acc)
+
+
+def _link_force(robot: RobotStruct, l: int, w, dw, dv):
+    """Link l's own force f = m (dv + (dw × c + w × (w × c))) and moment about
+    its origin n = (I dw + w × I w) + c × f, in its frame."""
+    c, I6 = _vec3(robot.com, l), _inertia6(robot, l)
+    f = _scale(_add(dv, _add(_cross(dw, c), _cross(w, _cross(w, c)))), robot.mass[l])
+    return f, _add(_add(_symm(I6, dw), _cross(w, _symm(I6, w))), _cross(c, f))
+
+
+def _link_force_vjp(robot: RobotStruct, l: int, w, dw, fb, nb):
+    """The cotangents (w̄, dw̄, dv̄) of `_link_force`'s inputs for the
+    cotangents fb on f and nb on n."""
+    c, I6, m = _vec3(robot.com, l), _inertia6(robot, l), robot.mass[l]
+    acb = _scale(_add(fb, _cross(nb, c)), m)  # of a_c = dv + dw × c + w × (w × c)
+    dwb = _add(_cross(c, acb), _symm(I6, nb))
+    wb = _add(_add(_cross(_cross(w, c), acb), _cross(c, _cross(acb, w))),
+              _add(_cross(_symm(I6, w), nb), _symm(I6, _cross(nb, w))))
+    return wb, dwb, acb
+
+
+def rnea_vjp_scalar(
+    robot: RobotStruct,
+    q: torch.Tensor,
+    qd: torch.Tensor,
+    qdd: torch.Tensor,
+    lam: torch.Tensor,
+    include_gravity: bool = True,
+    use_damping: bool = True,
+    gravity: float = GRAVITY,
+) -> torch.Tensor:
+    """(∂RNEA(q, qd, qdd)/∂q)ᵀ λ and (∂RNEA/∂qd)ᵀ λ as one [2D, B...] tensor
+    (rows k < D the q partials, D + k the qd ones) for dof-major q, qd, qdd,
+    λ [D, B...], with gravity and damping as `rnea_scalar` has them.
+
+    One reverse sweep of the RNEA: its forward sweep (each link's motion and
+    own force) and backward sweep (the totals) once, then their reverse,
+    root to tip for the force and moment totals' cotangents, tip to root
+    for each link's force reverse and its motion's. A revolute joint's local
+    rotation R = F J(q) about its unit axis a has Jᵀ dJ/dq = [a]×, so
+    y = Rᵀ x with cotangent ȳ adds a·(ȳ × y) to q̄ and z = R x adds
+    a·(x × Rᵀ z̄); a prismatic joint's offset t = t0 + (F a) q adds
+    (F a)·t̄. The plain version of csrc/dyn_step.cuh `drm_rr_rnea_vjp` (the
+    sweeps, then `drm_rr_rnea_reverse`), which follows it line for line."""
+    L, D = robot.n_links, robot.n_dofs
+    zero = torch.zeros(q.shape[1:], dtype=q.dtype, device=q.device)
+    ld = _link_dof_map(robot)
+    pick = lambda x: [x[ld[l]] if l in ld else zero for l in range(L)]
+    qd_l, qdd_l = pick(qd), pick(qdd)
+    Rl, tl = _local_transforms(robot, pick(q), zero)
+    z3 = (zero, zero, zero)
+    w, dw, dv, f, n = [z3] * L, [z3] * L, [z3] * L, [z3] * L, [z3] * L
+    dv[0] = (zero, zero, zero + gravity if include_gravity else zero)
+    for l in range(1, L):
+        par, jt, a = robot.parent[l], robot.joint_types[l], _vec3(robot.axis, l)
+        w_c, dw_c, dv_c = _motion(Rl[l], tl[l], w[par], dw[par], dv[par])
+        w[l], dw[l], dv[l] = w_c, dw_c, dv_c
+        if jt != JOINT_FIXED:
+            j = _scale(a, qd_l[l])
+            wxj, aq = _cross(w_c, j), _scale(a, qdd_l[l])
+            if jt == JOINT_REVOLUTE:
+                w[l], dw[l] = _add(w_c, j), _add(dw_c, _add(aq, wxj))
+            else:
+                dv[l] = _add(dv_c, _add(aq, _scale(wxj, 2.0)))
+        f[l], n[l] = _link_force(robot, l, w[l], dw[l], dv[l])
+    for l in range(L - 1, 0, -1):  # f[l], n[l] become the totals of l's subtree
+        par = robot.parent[l]
+        f_p = _rot(Rl[l], f[l])
+        f[par] = _add(f[par], f_p)
+        n[par] = _add(n[par], _add(_rot(Rl[l], n[l]), _cross(tl[l], f_p)))
+
+    gq = [zero] * D
+    gqd = [robot.damping[d] * lam[d] if use_damping else zero for d in range(D)]
+    fb, nb, wb, dwb, dvb, tb = ([z3] * L for _ in range(6))
+    for l in range(1, L):  # the backward sweep's reverse, root -> tip: fb, nb of the totals
+        par, jt, a = robot.parent[l], robot.joint_types[l], _vec3(robot.axis, l)
+        R, t = Rl[l], tl[l]
+        fb_l = _rot_t(R, _add(fb[par], _cross(nb[par], t)))  # f_p = R f and t x f_p
+        nb_l = _rot_t(R, nb[par])
+        if jt == JOINT_REVOLUTE:
+            d = ld[l]
+            gq[d] = gq[d] + _dot(a, _add(_cross(f[l], fb_l), _cross(n[l], nb_l)))
+            nb_l = _add(nb_l, _scale(a, lam[d]))
+        elif jt == JOINT_PRISMATIC:
+            tb[l] = _cross(_rot(R, f[l]), nb[par])
+            fb_l = _add(fb_l, _scale(a, lam[ld[l]]))
+        fb[l], nb[l] = fb_l, nb_l
+    # the forward sweep's reverse, tip -> root: wb, dwb, dvb gather the
+    # children's cotangents, then each link adds its force reverse
+    for l in range(L - 1, 0, -1):
+        par, jt, a = robot.parent[l], robot.joint_types[l], _vec3(robot.axis, l)
+        R, t = Rl[l], tl[l]
+        seeds = _link_force_vjp(robot, l, w[l], dw[l], fb[l], nb[l])
+        wb[l], dwb[l], dvb[l] = (_add(x, y) for x, y in zip((wb[l], dwb[l], dvb[l]), seeds))
+        w_c, dw_c, dv_c = _motion(R, t, w[par], dw[par], dv[par])
+        wcb, dwcb, dvcb = wb[l], dwb[l], dvb[l]
+        if jt != JOINT_FIXED:
+            d = ld[l]
+            j = _scale(a, qd_l[l])
+            if jt == JOINT_REVOLUTE:
+                jb = _add(wb[l], _cross(dwb[l], w_c))
+                wcb = _add(wb[l], _cross(j, dwb[l]))
+                gq[d] = gq[d] + _dot(a, _add(_add(_cross(wcb, w_c), _cross(dwcb, dw_c)),
+                                             _cross(dvcb, dv_c)))
+            else:
+                jb = _scale(_cross(dvb[l], w_c), 2.0)
+                wcb = _add(wb[l], _scale(_cross(j, dvb[l]), 2.0))
+            gqd[d] = gqd[d] + _dot(a, jb)
+        accb = _rot(R, dvcb)
+        c2b = _cross(accb, w[par])
+        wb[par] = _add(wb[par], _add(_rot(R, wcb), _add(_cross(_cross(w[par], t), accb),
+                                                         _cross(t, c2b))))
+        dwb[par] = _add(dwb[par], _add(_rot(R, dwcb), _cross(t, accb)))
+        dvb[par] = _add(dvb[par], accb)
+        if jt == JOINT_PRISMATIC:
+            tbl = _add(tb[l], _add(_cross(accb, dw[par]), _cross(c2b, w[par])))
+            d = ld[l]
+            gq[d] = gq[d] + _dot(_rot(R, _vec3(robot.axis, l)), tbl)
+    if D == 0:
+        return torch.zeros((0,) + tuple(q.shape[1:]), dtype=q.dtype, device=q.device)
+    return torch.stack(gq + gqd)
+
+
 def _rot_symm_rot_t(R, I6):
     """R @ I @ R^T for symmetric I (6-tuple), returning the 6-tuple."""
     rows = [_symm(I6, (R[3 * i], R[3 * i + 1], R[3 * i + 2])) for i in range(3)]

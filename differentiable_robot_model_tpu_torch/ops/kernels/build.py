@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -118,3 +119,32 @@ def load(name: str, configure: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
 def compiler_report(name: str) -> str:
     """What nvcc and ptxas printed when the library was built."""
     return library_path(name).with_suffix(".log").read_text()
+
+
+def parse_ptxas(report: str, contains: str = "") -> list[dict]:
+    """Per kernel (entry function) in an nvcc report whose name, demangled
+    where `c++filt` is installed, contains `contains`: its registers, stack
+    frame and spill stores and loads in bytes, from ptxas's lines."""
+    entries, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and "stack" not in cur:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and "registers" not in cur:
+            cur["registers"] = int(m.group(1))
+    filt = shutil.which("c++filt")
+    if filt and entries:
+        names = subprocess.run([filt], input="\n".join(e["entry"] for e in entries),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(entries):
+            for e, n in zip(entries, names):
+                e["entry"] = n.replace("(anonymous namespace)::", "")
+    return [e for e in entries if contains in e["entry"]]

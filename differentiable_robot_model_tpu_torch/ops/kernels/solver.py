@@ -31,7 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ...models.structs import RobotStruct
+from ...models.structs import JOINT_FIXED, JOINT_REVOLUTE, RobotStruct
 from ...trajopt.rollout import _clip, _effort_bound
 from ..dynamics_scalar import ldl_solve_scalar, mass_matrix_scalar, rnea_scalar
 from . import build, rng
@@ -47,6 +47,7 @@ from .fk import (
     joint_vjp,
 )
 from .rollout import (
+    MAX_LINKS,
     TREE_CTYPES,
     StepFlags,
     StepReplay,
@@ -291,6 +292,42 @@ kinematic_adam_solve.launches = 0
 # The dynamic whole solve: kernel K9 `dyn_solve` and its prologue.
 # ---------------------------------------------------------------------------
 
+# The instantiations of K9 and K10 by their code (csrc/dyn_step.cuh
+# `DrmVariant`): the generic builds for up to 16 and 32 links and dofs,
+# and one per serial-chain shape (links, dofs) whose topology is fixed at
+# compile time (`DrmSerial`).
+VARIANTS = ("generic16", "generic32", "serial9x7", "serial4x2")
+SERIAL_SHAPES = {(9, 7): "serial9x7", (4, 2): "serial4x2"}
+
+
+def kernel_variant(robot: RobotStruct) -> str:
+    """The K9/K10 instantiation for the robot: "serial{L}x{D}" for a serial
+    chain of a built shape (link l's parent l - 1, links 1..D revolute with
+    dofs 0..D-1, the rest fixed: iiwa, panda_no_gripper, fetch_arm, the
+    2-link robot), else "generic16" or "generic32" by its link and dof
+    counts. Raises for a robot beyond 32 links or dofs."""
+    L, D = robot.n_links, robot.n_dofs
+    if L > MAX_LINKS or D > MAX_DOF:
+        raise ValueError(f"{L} links and {D} dofs exceed the kernels' {MAX_LINKS} and {MAX_DOF}")
+    types = (JOINT_FIXED,) + (JOINT_REVOLUTE,) * D + (JOINT_FIXED,) * (L - 1 - D)
+    serial = (
+        all(robot.parent[l] == l - 1 for l in range(1, L))
+        and tuple(robot.joint_types) == types
+        and tuple(robot.dof_links) == tuple(range(1, D + 1))
+    )
+    if serial and (L, D) in SERIAL_SHAPES:
+        return SERIAL_SHAPES[(L, D)]
+    return "generic16" if L <= 16 and D <= 16 else "generic32"
+
+
+def _check_variants(sizes, first: int, source: str) -> None:
+    """The serial shapes a kernel library reports from `first` on match
+    SERIAL_SHAPES."""
+    shapes = tuple(zip(sizes[first::2], sizes[first + 1::2]))
+    if shapes != tuple(SERIAL_SHAPES):
+        raise RuntimeError(
+            f"{source} builds serial shapes {shapes}, Python expects {tuple(SERIAL_SHAPES)}")
+
 
 class _DynSolveParams(ctypes.Structure):
     _fields_ = [
@@ -305,7 +342,7 @@ class _DynSolveParams(ctypes.Structure):
 
 
 def _configure_dyn(lib: ctypes.CDLL) -> None:
-    sizes = (ctypes.c_int64 * 4)()
+    sizes = (ctypes.c_int64 * (4 + 2 * len(SERIAL_SHAPES)))()
     lib.dyn_solve_layout.argtypes = [ctypes.c_void_p]
     lib.dyn_solve_layout.restype = None
     lib.dyn_solve_layout(sizes)
@@ -315,13 +352,14 @@ def _configure_dyn(lib: ctypes.CDLL) -> None:
         ctypes.sizeof(CHAIN_CTYPES[torch.float32]),
         ctypes.sizeof(_DynSolveParams),
     )
-    if tuple(sizes) != expect:
-        raise RuntimeError(f"csrc/dyn_solve.cu layout {tuple(sizes)} != Python's {expect}")
+    if tuple(sizes[:4]) != expect:
+        raise RuntimeError(f"csrc/dyn_solve.cu layout {tuple(sizes[:4])} != Python's {expect}")
+    _check_variants(sizes, 4, "csrc/dyn_solve.cu")
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in ("dyn_prologue_f32", "dyn_prologue_f64"):
         getattr(lib, fn).argtypes = [p] * 6 + [i, i, ctypes.c_int64, p]
         getattr(lib, fn).restype = ctypes.c_int
-    lib.dyn_solve_f32.argtypes = [p] * 19 + [ctypes.c_int64, p]
+    lib.dyn_solve_f32.argtypes = [i] + [p] * 20 + [ctypes.c_int64, p]
     lib.dyn_solve_f32.restype = ctypes.c_int
 
 
@@ -481,12 +519,15 @@ def dynamic_adam_solve(
     costs [n_iters+1, B]): costs[t] before update t, costs[n_iters] final.
 
     Bound on the H100: per scenario, stage and iteration one step and one
-    chain FK forward, and a replayed step, an LDL^T solve, 2D dual RNEA
-    sweeps and a Jacobian sweep backward: tens of thousands of FP32
-    operations over a few hundred bytes of inputs, so operations bound it;
-    with one thread per scenario (one warp per SM at B=4096) each thread's
-    dependent chain sets the time. Scratch a, m, v, tau_s, qs, qds, ps
-    (about 37 MB at iiwa H=50, B=4096) is batch-minor in global memory.
+    chain FK with J^T g forward, and an LDL^T solve and an RNEA with one
+    reverse sweep backward: thousands of FP32 operations over a few
+    hundred bytes of inputs, so operations bound it; with one thread per
+    scenario (one warp per SM at B=4096) each scenario's dependent chain
+    sets the time, which csrc/dyn_solve.cu's design note addresses (for a
+    serial chain, two warps share each scenario's work). Scratch a,
+    m, v, tau_s, qs, qds, J^T gpe and the step factors (about 69 MB at iiwa
+    H=50, B=4096) is batch-minor in global memory. The instantiation is
+    `kernel_variant(robot)`'s.
     """
     H, D, B, named = _validate_dyn(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters)
     if q0T.device.type == "cpu":
@@ -506,20 +547,21 @@ def dynamic_adam_solve(
         **{k: c[k] for k in ("cgoal_w", "ceff_w", "gpe_w", "geff_w", "b1", "b2", "omb1",
                              "omb2", "eps", "eps_root")},
     )
+    variant = VARIANTS.index(kernel_variant(robot))
     dev = q0T.device
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    tau_out, a, m, v, tau_s, qs, qds = (new(H, D, B) for _ in range(7))
-    ps = new(H, 3, B)
+    tau_out, a, m, v, tau_s, qs, qds, jtg = (new(H, D, B) for _ in range(8))
+    fac = new(H, D * (D - 1) // 2 + 2 * D, B)  # per stage Ĥ's LDL^T factor and qdd*
     costs = new(n_iters + 1, B)
     if B:
         bc = torch.from_numpy(c["bc"]).to(dev)
         ptrs = (q0T, qd0T, tau_refT, goalT, aT0)
         _launch_dyn(
             "dyn_solve_f32",
-            (ctypes.byref(tree), ctypes.byref(ch), ctypes.byref(params),
+            (variant, ctypes.byref(tree), ctypes.byref(ch), ctypes.byref(params),
              *(x.data_ptr() for x in ptrs), None if H0 is None else H0.data_ptr(),
              bc.data_ptr(), tau_out.data_ptr(), costs.data_ptr(),
-             *(x.data_ptr() for x in (a, m, v, tau_s, qs, qds, ps)), B),
+             *(x.data_ptr() for x in (a, m, v, tau_s, qs, qds, jtg, fac)), B),
             dev,
         )
         dynamic_adam_solve.launches += 1
@@ -607,7 +649,7 @@ def mppi_solve_reference(
 
 
 def _configure_mppi(lib: ctypes.CDLL) -> None:
-    sizes = (ctypes.c_int64 * 5)()
+    sizes = (ctypes.c_int64 * (5 + 2 * len(SERIAL_SHAPES)))()
     lib.mppi_solve_layout.argtypes = [ctypes.c_void_p]
     lib.mppi_solve_layout.restype = None
     lib.mppi_solve_layout(sizes)
@@ -618,11 +660,12 @@ def _configure_mppi(lib: ctypes.CDLL) -> None:
         ctypes.sizeof(CHAIN_CTYPES[torch.float64]),
         ctypes.sizeof(_MppiParams),
     )
-    if tuple(sizes) != expect:
-        raise RuntimeError(f"csrc/mppi_solve.cu layout {tuple(sizes)} != Python's {expect}")
+    if tuple(sizes[:5]) != expect:
+        raise RuntimeError(f"csrc/mppi_solve.cu layout {tuple(sizes[:5])} != Python's {expect}")
+    _check_variants(sizes, 5, "csrc/mppi_solve.cu")
     p = ctypes.c_void_p
     for fn in ("mppi_solve_f32", "mppi_solve_f64"):
-        getattr(lib, fn).argtypes = [p] * 11 + [ctypes.c_int64, p]
+        getattr(lib, fn).argtypes = [ctypes.c_int] + [p] * 11 + [ctypes.c_int64, p]
         getattr(lib, fn).restype = ctypes.c_int
     lib.mppi_rng_probe.argtypes = [p, ctypes.c_uint32, ctypes.c_uint32, p, p, p, ctypes.c_int64, p]
     lib.mppi_rng_probe.restype = ctypes.c_int
@@ -660,7 +703,8 @@ def mppi_solve(
 
     Bound on the H100: per scenario, iteration and sample, H folded FD steps
     with the ee FK (csrc/mppi_solve.cu says what the design does about
-    it); the inputs and outputs are a few kilobytes per scenario.
+    it); the inputs and outputs are a few kilobytes per scenario. For
+    K <= 256 the instantiation is `kernel_variant(robot)`'s.
     """
     H, D, B, named = _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters,
                                     n_samples)
@@ -684,7 +728,8 @@ def mppi_solve(
         ptrs = (q0T, qd0T, tau_refT, goalT)
         _launch_mppi(
             f"mppi_solve_{_suffix(dtype)}",
-            (ctypes.byref(tree), ctypes.byref(ch), ctypes.byref(params),
+            (VARIANTS.index(kernel_variant(robot)), ctypes.byref(tree), ctypes.byref(ch),
+             ctypes.byref(params),
              *(x.data_ptr() for x in ptrs), None if H0 is None else H0.data_ptr(),
              aT0.data_ptr(), tau.data_ptr(), costs.data_ptr(), B),
             dev,

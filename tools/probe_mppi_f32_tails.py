@@ -6,8 +6,8 @@ update follows, and that scenario's torques move far from the float64 solve
 (ROADMAP F6). This script measures how far such tails reach. For each of
 `chip_smoke.py`'s K10 check cases (`mppi_check_cases`: iiwa B=16 K=64 H=10 3
 iterations, K=100, K=1024, a binding 5 N m box, no preconditioner,
-kuka_iiwa7_allegro, and the main path's shape B=256 K=128 H=50 10
-iterations) and for each of several Philox keys it runs K10 and its plain
+kuka_iiwa7_allegro, panda_no_gripper, panda_with_gripper, and the main
+path's shape B=256 K=128 H=50 10 iterations) and for each of several Philox keys it runs K10 and its plain
 version in float32 and float64 and the plain float32 version once more on
 the CPU (`chip_smoke.mppi_readings`), and prints, per case and key, the
 median and max over the scenarios of each float32 evaluation's torque

@@ -27,7 +27,7 @@ and for each build:
 - keeps ptxas's report (registers, stack frame, spills) and the SASS of
   `rnea_bwd_kernel` (instruction count, local loads and stores, and the
   text itself, gzipped under the output directory's `sass/`);
-- with `--ab`, times K6, K8 and K9 (the other users of `drm_rnea_vjp`) at
+- with `--ab`, times K6 and K8 (the other users of `drm_rnea_vjp`) at
   iiwa H=50 B=4096 float32 with `drm_rnea_vjp` inlined, as shipped, and kept
   a call (`__noinline__`), alternating within the run;
 - with `--sanitize`, runs the float32 iiwa case of the `two_arrays_fn` build at
@@ -272,8 +272,8 @@ def sanitize(tool: str):
 
 def ab_dynamics(rounds=4):
     """The other users of `drm_rnea_vjp` with it inlined (the shipped csrc/)
-    and kept a call (a copy of csrc/ with `__noinline__`): K6, K8 and
-    K9 at iiwa H=50 B=4096 float32, through their wrappers, with the
+    and kept a call (a copy of csrc/ with `__noinline__`): K6 and K8 at
+    iiwa H=50 B=4096 float32, through their wrappers, with the
     library under each wrapper swapped; `rounds` rounds in alternating order,
     median of 10 by CUDA events each. Also the largest difference between
     the two builds' outputs."""
@@ -288,7 +288,7 @@ def ab_dynamics(rounds=4):
     cuh.write_text(text.replace("__device__ void drm_rnea_vjp", "__device__ __noinline__ void drm_rnea_vjp"))
     procs = {}
     for tag, src in (("inline", build.CSRC), ("noinline", noinline_dir)):
-        for name in ("dyn_rollout", "dyn_solve"):
+        for name in ("dyn_rollout",):
             out = PROBE_DIR / f"lib{name}-{tag}.so"
             procs[(tag, name)] = subprocess.Popen(
                 [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src / f"{name}.cu")],
@@ -299,7 +299,7 @@ def ab_dynamics(rounds=4):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name} ({tag}):\n{log[-2000:]}")
         lib = ctypes.CDLL(str(PROBE_DIR / f"lib{name}-{tag}.so"))
-        (kr._configure if name == "dyn_rollout" else ksolver._configure_dyn)(lib)
+        kr._configure(lib)
         libs[(tag, name)] = lib
     model = drt.DifferentiableKUKAiiwa(device="cuda")
     s, ee = model.struct, model.struct.link_index("iiwa_link_ee")
@@ -307,12 +307,9 @@ def ab_dynamics(rounds=4):
     gen = torch.Generator(device="cuda").manual_seed(4)
     q0T = (torch.rand((D, B), generator=gen, device="cuda") * 2 - 1) * 0.5
     qd0T = torch.zeros_like(q0T)
-    goalT = torch.tensor([[0.5], [0.0], [0.5]], device="cuda") + 0.1 * torch.randn(
-        (3, B), generator=gen, device="cuda")
 
     def use(tag):
         build._loaded["dyn_rollout"] = libs[(tag, "dyn_rollout")]
-        build._loaded["dyn_solve"] = libs[(tag, "dyn_solve")]
 
     use("inline")
     tr, H0, a0 = ksolver.dyn_prologue(s, q0T, None, H)
@@ -323,9 +320,6 @@ def ab_dynamics(rounds=4):
     calls = {
         "dyn_rollout_bwd": lambda: kr.dyn_rollout_bwd(s, q0T, qd0T, tau, *roll[:2], gqs, None, dt),
         "dyn_rollout_ee_bwd": lambda: kr.dyn_rollout_ee_bwd(s, q0T, qd0T, tau, *roll, gps, dt, ee),
-        "dyn_solve": lambda: ksolver.dynamic_adam_solve(
-            s, q0T, qd0T, goalT, tr, H0, a0, ee, n_iters=10, dt=dt, lr=0.5, goal_weight=10.0,
-            effort_weight=1e-4, eps=0.1),
     }
     result = {"times_ms": {k: {"noinline": [], "inline": []} for k in calls}}
     outs = {}
@@ -339,7 +333,6 @@ def ab_dynamics(rounds=4):
         k: max((a - b).abs().max().item() for a, b in zip(outs[("noinline", k)], outs[("inline", k)]))
         for k in calls}
     build._loaded.pop("dyn_rollout")
-    build._loaded.pop("dyn_solve")
     for k, v in result["times_ms"].items():
         print(f"[probe] {k}: noinline " + " ".join(f"{t:.3f}" for t in v["noinline"]) + " ms; inline "
               + " ".join(f"{t:.3f}" for t in v["inline"]) + f" ms; max |diff| {result['max_abs_diff'][k]:.3e}",
@@ -350,7 +343,7 @@ def ab_dynamics(rounds=4):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sanitize", action="store_true")
-    ap.add_argument("--ab", action="store_true", help="time K6, K8, K9 with drm_rnea_vjp inlined or not")
+    ap.add_argument("--ab", action="store_true", help="time K6 and K8 with drm_rnea_vjp inlined or not")
     ap.add_argument("--only", help="run one already compiled build (used under the sanitizer)")
     ap.add_argument("--small", action="store_true", help="iiwa float32 at B=256 only")
     ap.add_argument("--out", type=Path, default=PROBE_DIR, help="where the report and SASS go")

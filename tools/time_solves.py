@@ -1,0 +1,240 @@
+"""Time K9 `dyn_solve` and K10 `mppi_solve` of one or two checkouts of the
+port on one CUDA card, beside K5 and K7.
+
+    python3 tools/time_solves.py [--check] [--detail]   # this checkout
+    python3 tools/time_solves.py --ab DIR [--check]     # and the checkout at DIR
+
+Each measurement runs in a process of its own that imports the package of
+one checkout and builds that checkout's kernels there (nvcc, into its
+`build/kernels/`): K9 at iiwa B=4096, H=50, 10 iterations (the dynamic MPC
+main path's shape), K10 at iiwa B=256, K=128, H=50, 10 iterations (the MPPI
+main path's), K5 `dyn_rollout_fwd` and K7 `dyn_rollout_ee_fwd` at iiwa
+B=4096, H=50, each the median of 20 launches by CUDA events after 3
+warm-ups, and the ratios K9/K5 and K10/K7 (K5 and K7 are the same code in
+both checkouts, so the ratios carry from one call to the next). Each prints
+ptxas's report for K9's and K10's kernels (registers, stack frame, spills)
+and one JSON line. With `--ab DIR` the checkouts run in turns: DIR's, this
+one's, this one's, DIR's, then a summary line of the medians. With
+`--check`, this checkout's K9 and K10 are first held to their plain
+versions at small shapes (K9: B=64, H=10, 5 iterations, the effort box off
+and on; K10: B=16, K=64, H=10, 3 iterations, float64), and the run fails
+if they disagree (K9 torques within 5e-3, K10 within 1e-9 of the largest
+torque). With `--detail`, this checkout's K9 is also timed on iiwa with
+the generic 16-link build in place of the serial one and on the 2-link
+robot, K10 alone at B=1 (one block: its dependent chain), and the SASS
+instructions of each K9 and K10 instantiation are counted (`cuobjdump`).
+
+A second checkout of a parent commit can be made with `git archive`
+(`mkdir -p build/parent && git archive HEAD~1 differentiable_robot_model_tpu_torch
+pyproject.toml | tar -x -C build/parent`). Run from the repo root on a
+machine with one CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+B, H, ITERS, MPPI_B, MPPI_K = 4096, 50, 10, 256, 128
+DT, LR, EPS, GOAL_W, EFFORT_W = 0.02, 0.5, 0.1, 10.0, 1e-4
+REPS = 20
+DEVICE = "cuda"
+
+
+def _sync_ms(torch, fn, reps=REPS, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _ptxas(report, kernel):
+    """ptxas's report for each instantiation of `kernel` in a build report,
+    parsed by this checkout's build module (the other checkout's may not
+    have the parser)."""
+    spec = importlib.util.spec_from_file_location(
+        "_drm_build", ROOT / "differentiable_robot_model_tpu_torch" / "ops" / "kernels" / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return [f"{e['entry'].split('(')[0]}: {e.get('registers')} registers, {e.get('stack')} bytes "
+            f"stack frame, {e.get('spill_stores')} / {e.get('spill_loads')} bytes spill stores / loads"
+            for e in mod.parse_ptxas(report, kernel)]
+
+
+def measure(root: Path, check: bool, detail: bool = False) -> dict:
+    """The times of one checkout's K9, K10, K5 and K7 (this process imports
+    the package under `root`)."""
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    import differentiable_robot_model_tpu_torch as drt
+    from differentiable_robot_model_tpu_torch.ops.kernels import build
+    from differentiable_robot_model_tpu_torch.ops.kernels import rollout as kr
+    from differentiable_robot_model_tpu_torch.ops.kernels import solver as ks
+    from differentiable_robot_model_tpu_torch.ops.kinematics import fk_link_position
+
+    pkg = Path(drt.__file__).resolve().parent
+    if pkg.parent != root.resolve():
+        raise RuntimeError(f"imported {pkg}, not the package under {root}")
+    dev = torch.device(DEVICE, 0)
+    secs = build.build(("dyn_rollout", "dyn_solve", "mppi_solve"))
+    model = drt.DifferentiableKUKAiiwa(device=dev)
+    s = model.struct
+    ee = s.link_index("iiwa_link_ee")
+    D = s.n_dofs
+    lim = model.get_joint_limits()
+    lo = np.array([x["lower"] for x in lim], np.float32)
+    hi = np.array([x["upper"] for x in lim], np.float32)
+
+    def problem(n, scale_q0):
+        rng = np.random.default_rng(0)
+        q0 = rng.uniform(scale_q0 * lo, scale_q0 * hi, (n, D)).astype(np.float32)
+        qg = rng.uniform(0.5 * lo, 0.5 * hi, (n, D)).astype(np.float32)
+        goals, _ = model.compute_forward_kinematics(torch.from_numpy(qg).to(dev), "iiwa_link_ee")
+        q0T = torch.from_numpy(q0).to(dev).T.contiguous()
+        return q0T, torch.zeros_like(q0T), goals.T.contiguous()
+
+    kw = dict(dt=DT, lr=LR, goal_weight=GOAL_W, effort_weight=EFFORT_W, eps=EPS)
+    mkw = lambda K, its: dict(n_iters=its, n_samples=K, dt=DT, temperature=0.01, noise_sigma=5.0,
+                              goal_weight=GOAL_W, effort_weight=EFFORT_W)
+    out = {"root": str(root), "card": torch.cuda.get_device_name(0), "build_s": secs,
+           "ptxas": _ptxas(build.compiler_report("dyn_solve"), "dyn_solve_")
+           + _ptxas(build.compiler_report("mppi_solve"), "mppi_kernel")}
+    if check:
+        q0T, qd0T, goalT = problem(64, 0.3)
+        tr, H0, a0 = ks.dyn_prologue(s, q0T, None, 10)
+        for effort in (False, True):
+            args = (s, q0T, qd0T, goalT, tr, H0, a0, ee)
+            tk, _ = ks.dynamic_adam_solve(*args, n_iters=5, respect_effort_limits=effort, **kw)
+            tp, _ = ks.dynamic_adam_solve_reference(*args, n_iters=5, respect_effort_limits=effort, **kw)
+            e = (tk - tp).abs().max().item()
+            out[f"check_k9_effort{int(effort)}"] = e
+            if not e <= 5e-3:
+                raise AssertionError(f"K9 disagrees with its plain version: {e}")
+        s64 = s.to(dtype=torch.float64)
+        q0T, qd0T, goalT = (x[:, :16].double().contiguous() for x in problem(16, 0.4))
+        tr, H0, a0 = ks.dyn_prologue(s64, q0T, None, 10)
+        args = (s64, q0T, qd0T, goalT, tr, H0, a0, 7, ee)
+        tk, _ = ks.mppi_solve(*args, **mkw(64, 3))
+        tp, _ = ks.mppi_solve_reference(*args, **mkw(64, 3))
+        e = ((tk - tp).abs().max() / tp.abs().max()).item()
+        out["check_k10_f64"] = e
+        if not e <= 1e-9:
+            raise AssertionError(f"float64 K10 disagrees with its plain version: {e}")
+    q0T, qd0T, goalT = problem(B, 0.3)
+    tr, H0, a0 = ks.dyn_prologue(s, q0T, None, H)
+    tau = (tr[None] + torch.randn((H, D, B), generator=torch.Generator(device=dev).manual_seed(4),
+                                  device=dev)).contiguous()
+    args = (s, q0T, qd0T, goalT, tr, H0, a0, ee)
+    out["dyn_solve_ms"] = _sync_ms(torch, lambda: ks.dynamic_adam_solve(*args, n_iters=ITERS, **kw))
+    out["dyn_rollout_fwd_ms"] = _sync_ms(torch, lambda: kr.dyn_rollout_fwd(s, q0T, qd0T, tau, DT))
+    out["dyn_rollout_ee_fwd_ms"] = _sync_ms(
+        torch, lambda: kr.dyn_rollout_ee_fwd(s, q0T, qd0T, tau, DT, ee))
+    q0T, qd0T, goalT = problem(MPPI_B, 0.4)
+    tr, H0, a0 = ks.dyn_prologue(s, q0T, None, H)
+    margs = (s, q0T, qd0T, goalT, tr, H0, a0, 7, ee)
+    out["mppi_solve_ms"] = _sync_ms(torch, lambda: ks.mppi_solve(*margs, **mkw(MPPI_K, ITERS)))
+    out["k9_over_k5"] = out["dyn_solve_ms"] / out["dyn_rollout_fwd_ms"]
+    out["k10_over_k7"] = out["mppi_solve_ms"] / out["dyn_rollout_ee_fwd_ms"]
+    if detail:
+        # K9 on iiwa with the generic 16-link build forced in place of its
+        # serial one, and on the 2-link robot's serial build
+        two = drt.DifferentiableTwoLinkRobot(device=dev).struct
+        q2T = q0T[:2].contiguous()
+        g2T = fk_link_position(two, (q2T + 0.3).T, two.n_links - 1).T.contiguous()
+        pick = ks.kernel_variant
+        for tag, rob, q, g, e, variant in (("iiwa_generic16", s, q0T, goalT, ee, "generic16"),
+                                            ("2link", two, q2T, g2T, two.n_links - 1, None)):
+            tr, H0, a0 = ks.dyn_prologue(rob, q, None, H)
+            args = (rob, q, torch.zeros_like(q), g, tr, H0, a0, e)
+            ks.kernel_variant = pick if variant is None else (lambda r, v=variant: v)
+            out[f"dyn_solve_{tag}_ms"] = _sync_ms(
+                torch, lambda: ks.dynamic_adam_solve(*args, n_iters=ITERS, **kw))
+            ks.kernel_variant = pick
+        one = [x[..., :1].contiguous() for x in margs[1:7]]
+        out["k10_b1_ms"] = _sync_ms(torch, lambda: ks.mppi_solve(s, *one, 7, ee, **mkw(MPPI_K, ITERS)))
+        out["sass_instructions"] = _sass_counts(build)
+    return out
+
+
+def _sass_counts(build):
+    """The SASS instruction count of each K9 and K10 instantiation
+    (`cuobjdump -sass`), where the toolkit has cuobjdump."""
+    exe = Path(build.nvcc()).with_name("cuobjdump")
+    counts = {}
+    for name, kernel in (("dyn_solve", "dyn_solve_"), ("mppi_solve", "mppi_kernel")):
+        if not exe.exists():
+            break
+        sass = subprocess.run([str(exe), "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                fn = fn if kernel in fn else None
+                if fn:
+                    counts[fn] = 0
+            elif fn and line.strip().startswith("/*") and "*/" in line and ";" in line:
+                counts[fn] += 1
+    return counts
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ab", type=Path, help="a second checkout, timed in turns with this one")
+    ap.add_argument("--check", action="store_true", help="first hold this checkout's K9 and K10 "
+                    "to their plain versions at small shapes")
+    ap.add_argument("--detail", action="store_true", help="also time this checkout's K9 on "
+                    "iiwa's generic build and on the 2-link robot, K10 at B=1, and count the "
+                    "SASS instructions of each instantiation")
+    ap.add_argument("--root", type=Path, help=argparse.SUPPRESS)  # one measurement, in this process
+    a = ap.parse_args()
+    if a.root is not None:
+        r = measure(a.root, a.check, a.detail)
+        for line in r.pop("ptxas"):
+            print(f"[ptxas] {a.root.name or 'this'} {line}", flush=True)
+        print(json.dumps(r), flush=True)
+        return 0
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[card] {card}", flush=True)
+    order = [(ROOT, a.check)] if a.ab is None else [(a.ab, False), (ROOT, a.check), (ROOT, False),
+                                                     (a.ab, False)]
+    runs = []
+    for root, check in order:
+        cmd = [sys.executable, __file__, "--root", str(root)] + (["--check"] if check else [])
+        cmd += ["--detail"] if a.detail and root == ROOT else []
+        p = subprocess.run(cmd, capture_output=True, text=True)
+        sys.stdout.write(p.stdout)
+        if p.returncode != 0:
+            sys.stderr.write(p.stderr)
+            return p.returncode
+        runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+    keys = ("dyn_solve_ms", "mppi_solve_ms", "dyn_rollout_fwd_ms", "dyn_rollout_ee_fwd_ms",
+            "k9_over_k5", "k10_over_k7")
+    summary = {"card": card}
+    for label, root in (("this", ROOT), ("other", a.ab)):
+        mine = [r for r in runs if root is not None and Path(r["root"]) == root]
+        if mine:
+            summary[label] = {k: [r[k] for r in mine] for k in keys}
+    print(json.dumps({"summary": summary}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
