@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int d = 0; d < D; ++d) gqn[d] = gq[d] + jtg[at(h * D + d)];
       // The step's adjoint from the stored factors (the implicit-function
-      // identity of drm_fd_step_adjoint): x̄ = (ḡqd' + dt ḡq') dclip(x),
+      // identity of dyn_step.cuh's header): x̄ = (ḡqd' + dt ḡq') dclip(x),
       // λ = Ĥ⁻¹ dt x̄, then one reverse RNEA sweep at (q, qd, qdd*).
       float q[ND], qd[ND], qdd[ND], Lf[NP], dg[ND], gx[ND], rhs[ND], lam[ND], jac[2 * ND];
 #pragma unroll

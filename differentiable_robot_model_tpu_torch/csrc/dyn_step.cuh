@@ -1,6 +1,6 @@
 // Shared device code of the dynamics kernels: the robot's whole tree as a
 // by-value kernel argument, one semi-implicit Euler forward-dynamics step,
-// and that step's adjoint.
+// the RNEA partials and the register-resident step.
 //
 // Port of the JAX package's ops/pallas/rollout.py `_fd_step_folded` (RNEA
 // bias at qdd = 0, world-frame composite-rigid-body mass matrix plus
@@ -15,20 +15,20 @@
 // dofs; each kernel is instantiated for two capacities (16 and 32 links and
 // dofs) so that the per-thread arrays of a small robot stay small.
 //
-// The adjoint (`drm_fd_step_adjoint`) is written out, since CUDA has no
-// jax.vjp: with Ĥ = M(q) + dt diag(d) and qdd* the replayed step's
-// acceleration, x̄ = (ḡqd' + dt ḡq') dclip(x), λ = Ĥ⁻¹ dt x̄, τ̄ = λ,
-// q̄ = ḡq' - (∂RNEA(q, qd, qdd*)/∂q)ᵀ λ and q̄d = x̄ - (∂RNEA/∂qd)ᵀ λ. The
-// RNEA partials come from 2D forward sweeps of the RNEA code on dual
-// numbers, one tangent each: more operations than one reverse sweep, and
-// the simplest form to hold against its plain version
-// (ops/kernels/rollout.py `StepReplay`). K5-K8, `rnea_bwd` and the
-// prologue run these functions.
+// CUDA has no jax.vjp, so the step's adjoint is written out by the
+// implicit-function identity: with Ĥ = M(q) + dt diag(d) and qdd* the
+// step's acceleration, x̄ = (ḡqd' + dt ḡq') dclip(x), λ = Ĥ⁻¹ dt x̄, τ̄ = λ,
+// q̄ = ḡq' - (∂RNEA(q, qd, qdd*)/∂q)ᵀ λ and q̄d = x̄ - (∂RNEA/∂qd)ᵀ λ
+// (K6/K8 in dyn_rollout.cu, K9 in dyn_solve.cu; plain version
+// ops/kernels/rollout.py `replay_reference` and `pull_stage`). The RNEA
+// partials come from reverse sweeps of the RNEA (`drm_rr_rnea_reverse`);
+// `drm_rnea_vjp` below, 2D forward sweeps on dual numbers, serves
+// `rnea_bwd` (rnea.cu) alone.
 //
-// K9 and K10 run the register-resident step at the end of this file
-// (`drm_rr_*`): the same arithmetic on a topology policy that fixes a
-// serial chain's shape at compile time, with the RNEA partials of K9's
-// adjoint from one reverse sweep (`drm_rr_rnea_vjp`).
+// K5, K7, the prologue and K4 run the first functions of this file; K6,
+// K8, K9 and K10 the register-resident step at its end (`drm_rr_*`): the
+// same arithmetic on a topology policy that fixes a serial chain's shape at
+// compile time.
 #pragma once
 
 #include <cstdint>
@@ -476,13 +476,14 @@ __device__ void drm_fd_step(const Tree<T>& tr, const T* q, const T* qd, const T*
 // (∂RNEA(q, qd, qdd)/∂(q, qd))ᵀ w into jac[2D]: jac[k] = Σ_d w_d ∂τ_d/∂q_k
 // for k < D and Σ_d w_d ∂τ_d/∂qd_{k-D} for k >= D, with the tree's gravity
 // and damping, from 2D forward sweeps of the RNEA on dual numbers, one
-// tangent direction each. All 2D partials go into the one array `jac`: with
-// the q and qd partials written into two arrays of the caller instead, nvcc
-// 12.9 -O3 gave one of them the local-memory slot of this loop's force
-// accumulator, which overwrote it (tools/probe_rnea_vjp_layout.py).
-// `__noinline__` would keep the loop's arrays in a frame of their own, at a
-// cost of 5-10% on K6, K8 and K9; chip_smoke.py instead holds every build of
-// every user of this function against its plain version.
+// tangent direction each; `rnea_bwd` (rnea.cu:83) is its only user. All 2D
+// partials go into the one array `jac`: with the q and qd partials written
+// into two arrays of the caller instead, nvcc 12.9 -O3 gave one of them the
+// local-memory slot of this loop's force accumulator, which overwrote it
+// (tools/probe_rnea_vjp_layout.py). `__noinline__` would keep the loop's
+// arrays in a frame of their own, at a cost of 5-10% on its caller;
+// chip_smoke.py instead holds every build of `rnea_bwd` against its plain
+// version.
 template <typename T, int NL, int ND>
 __device__ void drm_rnea_vjp(const Tree<T>& tr, const T* q, const T* qd, const T* qdd, const T* w,
                              T* jac) {
@@ -503,30 +504,7 @@ __device__ void drm_rnea_vjp(const Tree<T>& tr, const T* q, const T* qd, const T
   }
 }
 
-// The adjoint of `drm_fd_step` at (q, qd, tau) for the cotangents gqn on q'
-// and gqdn on qd' (gqd may alias gqdn): lam = τ̄, gq = q̄, gqd = q̄d.
-template <typename T, int NL, int ND>
-__device__ void drm_fd_step_adjoint(const Tree<T>& tr, const T* q, const T* qd, const T* tau,
-                                    const T* gqn, const T* gqdn, T* lam, T* gq, T* gqd) {
-  const int D = tr.D;
-  T Lf[ND * (ND + 1) / 2], dg[ND], qdd[ND], gx[ND], rhs[ND];
-  drm_fd_accel<T, NL, ND>(tr, q, qd, tau, Lf, dg, qdd);
-  for (int d = 0; d < D; ++d) {
-    const T x = qd[d] + tr.dt * qdd[d];
-    gx[d] = (gqdn[d] + tr.dt * gqn[d]) * drm_clip_grad(x, -tr.vmax[d], tr.vmax[d]);
-    rhs[d] = tr.dt * gx[d];
-  }
-  drm_ldl_solve<T, ND>(Lf, dg, D, rhs, lam);
-  // q̄ = ḡq' - (∂RNEA(q, qd, qdd*)/∂q)ᵀ λ, q̄d = x̄ - (∂RNEA/∂qd)ᵀ λ.
-  T jac[2 * ND];
-  drm_rnea_vjp<T, NL, ND>(tr, q, qd, qdd, lam, jac);
-  for (int d = 0; d < D; ++d) {
-    gq[d] = gqn[d] - jac[d];
-    gqd[d] = gx[d] - jac[D + d];
-  }
-}
-
-// ---- the register-resident step (K9 dyn_solve, K10 mppi_solve) ---------------
+// ---- the register-resident step (K6/K8's backward, K9, K10) -----------------
 //
 // The functions below take the robot's topology from a policy P: the link
 // and dof counts, each link's parent, joint type and dof, each dof's link
@@ -733,12 +711,18 @@ struct DrmLocalRnea {
 // `DrmSharedRnea`): the plain version's arithmetic
 // (ops/dynamics_scalar.py `rnea_vjp_scalar`, whose docstring gives the
 // identities), line for line. Both partials go into the one array `jac`,
-// the form nvcc 12.9 compiles correctly for `drm_rnea_vjp` (F5).
+// the form nvcc 12.9 compiles correctly for `drm_rnea_vjp` (F5). `unit` >= 0
+// says that lam is the unit cotangent on that dof: on a serial chain the
+// links up to its joint's parent then carry no force cotangent, and their
+// share of the sweeps (the totals' reverse, the link forces' reverse) is
+// skipped.
 template <typename T, class P, class S>
 __device__ __forceinline__ void drm_rr_rnea_reverse(const Tree<T>& tr, const S& s, const T* qd,
-                                                    const T* lam, T* jac) {
+                                                    const T* lam, T* jac, int unit = -1) {
   constexpr int NL = P::NL;
   const int n = P::links(tr), D = P::dofs(tr);
+  // link l of a serial chain carries dof l - 1
+  auto quiet = [&](int l) { return P::serial && l <= unit; };
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     jac[d] = T(0);
@@ -751,6 +735,11 @@ __device__ __forceinline__ void drm_rr_rnea_reverse(const Tree<T>& tr, const S& 
   for (int i = 0; i < 3; ++i) fb[0][i] = nb[0][i] = T(0);
 #pragma unroll
   for (int l = 1; l < n; ++l) {
+    if (quiet(l)) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) fb[l][i] = nb[l][i] = T(0);
+      continue;
+    }
     const TreeLink<T>& L = tr.link[l];
     const int par = P::parent(tr, l), ty = P::type(tr, l);
     T R[9], t[3], u[3], nt[3];
@@ -799,7 +788,7 @@ __device__ __forceinline__ void drm_rr_rnea_reverse(const Tree<T>& tr, const S& 
     s.w(par, wp);
     s.dw(par, dwp);
     s.dv(par, dvp);
-    {
+    if (!quiet(l)) {
       T fc[3], acb[3], ca[3], Inb[3], wc[3], x1[3], aw[3], x2[3], Iw[3], x3[3], nw[3], x4[3];
       drm_cross(nb[l], L.com, fc);
 #pragma unroll
@@ -1165,8 +1154,8 @@ __device__ __forceinline__ void drm_rr_ee(const Chain<T>& ch, const T* q, Rec re
     drm_chain_sweep(ch, [&](int d) { return q[d]; }, rec, pw);
 }
 
-// The instantiations of K9 and K10, by the code ops/kernels/solver.py
-// `kernel_variant` passes.
+// The instantiations of K6/K8's backward, K9 and K10, by the code
+// ops/kernels/solver.py `kernel_variant` passes.
 enum DrmVariant { DRM_GENERIC16 = 0, DRM_GENERIC32 = 1, DRM_SERIAL_9_7 = 2, DRM_SERIAL_4_2 = 3 };
 
 // (links, dofs) of DRM_SERIAL_9_7 and DRM_SERIAL_4_2, for the Python side's check.

@@ -9,29 +9,42 @@ Replaces the JAX package's ops/pallas/rollout.py `_fwd_kernel` and
 each followed by the ee FK) and `_bwd_kernel` / `_bwd_ee_kernel` (their
 adjoints, by replay and `jax.vjp` of the step inside the kernel). CUDA has
 no `jax.vjp`, so the adjoint of a step is written out by the
-implicit-function identity (`StepReplay`): with Ĥ = M(q) + dt diag(d) and
-qdd* the step's acceleration,
+implicit-function identity: with Ĥ = M(q) + dt diag(d) and qdd* the step's
+acceleration,
 
     x̄ = (ḡqd' + dt ḡq') * dclip(x),   λ = Ĥ⁻¹ (dt x̄),   τ̄ = λ,
     q̄ = ḡq' - (∂RNEA(q, qd, qdd*)/∂q)ᵀ λ,   q̄d = x̄ - (∂RNEA/∂qd)ᵀ λ,
 
 where ḡq' holds the cotangent on qs plus J(q')ᵀ ḡp from the ee FK, and ḡqd'
-the cotangent on qds. The RNEA partials come from 2D forward-mode tangents
-(duals) through the RNEA sweeps. The adjoint kernels take the cotangents on
-qs and qds each optionally, so every cotangent pattern JAX's custom VJPs
-accept runs on a kernel.
+the cotangent on qds. The adjoint kernels take the cotangents on qs and qds
+each optionally, so every cotangent pattern JAX's custom VJPs accept runs
+on a kernel.
+
+The adjoint runs in two phases. Phase A (`replay_reference`, kernel
+`replay_kernel`) computes, for every stage at once, all that does not
+depend on the carried cotangent: Ĥ's LDLᵀ factor, the clamp's mask, the D
+rows of ∂RNEA/∂(q, qd) at qdd* (D reverse RNEA sweeps with unit
+cotangents), and the cotangents gqs[h] + J^T gps[h] and gqds[h], into a
+scratch [stage, K, B] (`replay_layout`). Phase B (`adjoint_reference`,
+kernel `adjoint_kernel`) then runs the short chain from the last stage
+back: one LDLᵀ solve and one 2D x D product a stage. The scratch is capped
+at SCRATCH_CAP_BYTES = 256 MiB (120 MB at iiwa H=50, B=4096 in float32):
+past it, both phases run over windows of stages from the last back, the
+carry handed from one window to the next; a window of one stage that does
+not fit is an error.
 
 Bound on the H100: per scenario and step the function needs one RNEA, one
 composite-rigid-body mass matrix, an LDL^T factor and solve (and one chain
-FK for the ee pair); the adjoint a replay of the step, one more solve, the
-RNEA partials (and the J^T g sweep): a few thousand FP32 operations for
-iiwa over a few hundred bytes, so operations bound it. One thread per
-scenario runs the whole horizon with the state in registers and local
-memory; at B=4096 that is one warp per SM, so each thread's dependent chain
-sets the time.
+FK for the ee pair); the adjoint a replay of the step, one more solve, one
+reverse RNEA sweep (and the J^T g sweep): a few thousand FP32 operations
+for iiwa over a few hundred bytes, so operations bound it. The forward
+runs one thread per scenario, and at B=4096 (one warp per SM) each
+thread's dependent chain sets its time; the adjoint's phase A runs H B
+independent threads, and its phase B one thread per scenario on a chain a
+fraction of a step long.
 
-On a CUDA tensor the wrappers launch the kernel or raise; they take the
-plain version only for tensors on the CPU.
+On a CUDA tensor the wrappers launch the kernels or raise; they take the
+plain versions only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ from ..dynamics_scalar import (
     ldl_factor,
     mass_matrix_scalar,
     rnea_scalar,
+    rnea_vjp_scalar,
 )
 from . import build
 from .fk import (
@@ -208,7 +222,8 @@ def _clip_grad(x, lo, hi):
 class _Dual:
     """A lane value with K tangents stacked in front of its lanes: the
     forward-mode number type that `rnea_jacobians` runs the RNEA sweeps on
-    (csrc/dyn_step.cuh carries one tangent per sweep instead)."""
+    (csrc/dyn_step.cuh `drm_rnea_vjp` carries one tangent per sweep
+    instead)."""
 
     __slots__ = ("v", "t")
 
@@ -280,46 +295,162 @@ def rnea_jacobians(robot: RobotStruct, q, qd, qdd, use_damping=True, include_gra
     return rows
 
 
-class StepReplay:
-    """The steps (q_h, qd_h, tau_h) -> (q'_h, qd'_h) of a rollout replayed
-    for its adjoint, batched over the stages: q, qd, tau are [H, D, B].
+# The instantiations of the register-resident kernels (K6/K8's backward, K9,
+# K10) by their code (csrc/dyn_step.cuh `DrmVariant`): the generic builds
+# for up to 16 and 32 links and dofs, and one per serial-chain shape (links,
+# dofs) whose topology is fixed at compile time (`DrmSerial`).
+VARIANTS = ("generic16", "generic32", "serial9x7", "serial4x2")
+SERIAL_SHAPES = {(9, 7): "serial9x7", (4, 2): "serial4x2"}
 
-    The replay (RNEA bias, mass matrix, the LDL^T factor of Ĥ, qdd*, the
-    clamp's mask and the RNEA partials) needs only the saved states, so it
-    runs once on [H, B] lanes; `pull(h, ...)` is then the adjoint of stage h
-    by the implicit-function identity (module docstring), the kernel's
-    arithmetic element for element."""
 
-    def __init__(self, robot: RobotStruct, q, qd, tau, flags: StepFlags):
-        D = robot.n_dofs
-        qT, qdT = q.transpose(0, 1), qd.transpose(0, 1)  # [D, H, B]
-        self.dt, self.D = flags.dt, D
-        nle = rnea_scalar(robot, qT, qdT, torch.zeros_like(qT), flags.include_gravity,
-                          flags.use_damping, flags.gravity)
-        M = mass_matrix_scalar(robot, qT)
-        rows = [[M[i][j] for j in range(D)] for i in range(D)]
-        if flags.use_damping:
-            for d in range(D):
-                rows[d][d] = rows[d][d] + flags.dt * robot.damping[d]
-        self.L, self.dg = ldl_factor(rows)
-        qdd = ldl_back(self.L, self.dg, tau.transpose(0, 1) - nle)
-        vmax = _velocity_bound(robot, 2)
-        x = qdT + flags.dt * torch.stack(qdd)
-        self.mask = _clip_grad(x, -vmax, vmax)  # [D, H, B]
-        self.jac = rnea_jacobians(robot, qT, qdT, qdd, flags.use_damping, flags.include_gravity,
-                                  flags.gravity)
+def kernel_variant(robot: RobotStruct) -> str:
+    """The instantiation for the robot: "serial{L}x{D}" for a serial chain
+    of a built shape (link l's parent l - 1, links 1..D revolute with dofs
+    0..D-1, the rest fixed: iiwa, panda_no_gripper, fetch_arm, the 2-link
+    robot), else "generic16" or "generic32" by its link and dof counts.
+    Raises for a robot beyond 32 links or dofs."""
+    L, D = robot.n_links, robot.n_dofs
+    if L > MAX_LINKS or D > MAX_DOF:
+        raise ValueError(f"{L} links and {D} dofs exceed the kernels' {MAX_LINKS} and {MAX_DOF}")
+    types = (JOINT_FIXED,) + (JOINT_REVOLUTE,) * D + (JOINT_FIXED,) * (L - 1 - D)
+    serial = (
+        all(robot.parent[l] == l - 1 for l in range(1, L))
+        and tuple(robot.joint_types) == types
+        and tuple(robot.dof_links) == tuple(range(1, D + 1))
+    )
+    if serial and (L, D) in SERIAL_SHAPES:
+        return SERIAL_SHAPES[(L, D)]
+    return "generic16" if L <= 16 and D <= 16 else "generic32"
 
-    def pull(self, h: int, gqn, gqdn):
-        """(τ̄, q̄, q̄d) of stage h for the cotangents gqn on q' and gqdn on
-        qd' ([D, B] each)."""
-        D, dt = self.D, self.dt
-        L_h = [[None if e is None else e[h] for e in row] for row in self.L]
-        gx = (gqdn + dt * gqn) * self.mask[:, h]
-        lam = ldl_back(L_h, [d[h] for d in self.dg], dt * gx)
-        jac = 0.0
+
+def _check_variants(sizes, first: int, source: str) -> None:
+    """The serial shapes a kernel library reports from `first` on match
+    SERIAL_SHAPES."""
+    shapes = tuple(zip(sizes[first::2], sizes[first + 1::2]))
+    if shapes != tuple(SERIAL_SHAPES):
+        raise RuntimeError(
+            f"{source} builds serial shapes {shapes}, Python expects {tuple(SERIAL_SHAPES)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplayLayout:
+    """The rows of one stage in the adjoint's scratch [stage, K, B]: Ĥ's
+    LDLᵀ factor (its strict lower triangle, entry (i, j) at i(i-1)/2 + j),
+    its diagonal at `dg`, the clamp's mask at `mask`, the D rows of
+    ∂RNEA/∂(q, qd) at qdd* from `rows` on (row d's 2D entries, q partials
+    then qd partials, at rows + 2D d), then the folded cotangent on q'
+    (gqs[h] plus J(q'_h)ᵀ gps[h]) at `ox` and that on qd' (gqds[h]) at
+    `odx`, each -1 where absent (zeros)."""
+
+    D: int
+    K: int
+    ox: int
+    odx: int
+
+    @property
+    def dg(self):
+        return self.D * (self.D - 1) // 2
+
+    @property
+    def mask(self):
+        return self.dg + self.D
+
+    @property
+    def rows(self):
+        return self.mask + self.D
+
+
+def replay_layout(D: int, gqx: bool, gqdx: bool) -> ReplayLayout:
+    """The scratch layout for D dofs, with or without the folded cotangent
+    rows (csrc/dyn_rollout.cu `replay_base` for the rest)."""
+    base = D * (D - 1) // 2 + 2 * D + 2 * D * D
+    ox = base if gqx else -1
+    odx = base + D * gqx if gqdx else -1
+    return ReplayLayout(D, base + D * (gqx + gqdx), ox, odx)
+
+
+def replay_reference(robot: RobotStruct, q, qd, tau, flags: StepFlags, gqx=None, gqdx=None):
+    """Plain version of the adjoint's phase A (csrc/dyn_rollout.cu
+    `replay_kernel`) for the stages whose incoming states are q, qd and
+    torques tau ([n, D, B]): everything of the step's adjoint that does not
+    depend on the carried cotangent, batched over the [n, B] lanes (RNEA
+    bias, mass matrix, the LDLᵀ factor of Ĥ, qdd*, the clamp's mask, and the
+    rows of ∂RNEA/∂(q, qd) at qdd* from D reverse sweeps, `rnea_vjp_scalar`
+    with the unit cotangents), and the folded cotangents gqx, gqdx [n, D, B]
+    (or None). Returns the scratch [n, K, B] of `replay_layout`."""
+    D = robot.n_dofs
+    n, _, B = q.shape
+    qT, qdT = q.transpose(0, 1), qd.transpose(0, 1)  # [D, n, B]
+    nle = rnea_scalar(robot, qT, qdT, torch.zeros_like(qT), flags.include_gravity,
+                      flags.use_damping, flags.gravity)
+    M = mass_matrix_scalar(robot, qT)
+    rows = [[M[i][j] for j in range(D)] for i in range(D)]
+    if flags.use_damping:
         for d in range(D):
-            jac = jac + lam[d] * self.jac[d][:, h]
-        return torch.stack(lam), gqn - jac[:D], gx - jac[D:]
+            rows[d][d] = rows[d][d] + flags.dt * robot.damping[d]
+    L, dg = ldl_factor(rows)
+    qdd = torch.stack(ldl_back(L, dg, tau.transpose(0, 1) - nle))
+    vmax = _velocity_bound(robot, 2)
+    mask = _clip_grad(qdT + flags.dt * qdd, -vmax, vmax)
+    unit = torch.eye(D, dtype=q.dtype, device=q.device)[:, :, None, None].expand(D, D, n, B)
+    sweep = lambda x: x[:, None].expand(D, D, n, B)  # dof, sweep, stage, scenario
+    jac = rnea_vjp_scalar(robot, sweep(qT), sweep(qdT), sweep(qdd), unit, flags.include_gravity,
+                          flags.use_damping, flags.gravity)  # [2D, D, n, B]: entry k of row d
+    parts = [L[i][j] for i in range(1, D) for j in range(i)] + list(dg) + list(mask.unbind(0))
+    blocks = [torch.stack(parts, 1), jac.permute(2, 1, 0, 3).reshape(n, 2 * D * D, B)]
+    blocks += [x for x in (gqx, gqdx) if x is not None]
+    return torch.cat(blocks, 1).contiguous()
+
+
+def pull_stage(s, D: int, dt: float, gqn, gqdn):
+    """The adjoint of one stage from its scratch rows s [K, B] (phase B's
+    stage, csrc/dyn_rollout.cu `adjoint_kernel`, element for element): for
+    the cotangents gqn on q' and gqdn on qd' ([D, B]), x̄ = (gqdn + dt gqn)
+    mask, λ = Ĥ⁻¹ dt x̄; returns (τ̄ = λ, q̄, q̄d)."""
+    lay = replay_layout(D, False, False)
+    L = [[s[i * (i - 1) // 2 + j] if j < i else None for j in range(D)] for i in range(D)]
+    gx = (gqdn + dt * gqn) * s[lay.mask:lay.mask + D]
+    lam = ldl_back(L, s[lay.dg:lay.dg + D], dt * gx)
+    rows = s[lay.rows:lay.rows + 2 * D * D].reshape(D, 2 * D, -1)
+    jac = 0.0
+    for d in range(D):
+        jac = jac + lam[d] * rows[d]
+    return torch.stack(lam), gqn - jac[:D], gx - jac[D:]
+
+
+def adjoint_reference(scr, lay: ReplayLayout, dt: float, gq, gqd):
+    """Plain version of the adjoint's phase B (csrc/dyn_rollout.cu
+    `adjoint_kernel`) over the stages whose scratch scr [n, K, B] holds,
+    from the last back, with the carry (gq, gqd [D, B]) of the stages after
+    them. Returns (gtau [n, D, B], the carry out)."""
+    D = lay.D
+    gtau = scr.new_empty((scr.shape[0], D, scr.shape[2]))
+    for l in range(scr.shape[0] - 1, -1, -1):
+        s = scr[l]
+        gqn = gq + s[lay.ox:lay.ox + D] if lay.ox >= 0 else gq
+        gqdn = gqd + s[lay.odx:lay.odx + D] if lay.odx >= 0 else gqd
+        gtau[l], gq, gqd = pull_stage(s, D, dt, gqn, gqdn)
+    return gtau, gq, gqd
+
+
+# The adjoint's scratch is capped: past it, both phases run over windows of
+# stages, from the last window back, the carry handed from one window to
+# the next (`_windows`). At iiwa H=50, B=4096 the scratch is about 120 MB
+# in float32 and 240 MB in float64, so one window serves both.
+SCRATCH_CAP_BYTES = 256 << 20
+
+
+def _windows(H: int, lay: ReplayLayout, B: int, itemsize: int):
+    """(window stages, the windows (h0, h1) from the last back) for H stages
+    of scratch rows `lay` over B scenarios under SCRATCH_CAP_BYTES. Raises
+    where one stage's scratch passes the cap."""
+    per_stage = lay.K * B * itemsize
+    W = min(H, SCRATCH_CAP_BYTES // per_stage, 65535)
+    if W < 1:
+        raise ValueError(
+            f"one stage of the adjoint's scratch ({per_stage} bytes: {lay.K} rows x B={B}) "
+            f"passes its cap of {SCRATCH_CAP_BYTES} bytes; split the batch")
+    return W, [(max(0, h1 - W), h1) for h1 in range(H, 0, -W)]
 
 
 def check_same(robot, named):
@@ -382,20 +513,36 @@ def dyn_rollout_ee_fwd_reference(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_da
     return qs, qds, ps
 
 
-def _adjoint_reference(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, flags, jtg=None):
-    """The adjoint kernels' arithmetic in eager torch, stage by stage from
-    the last (`StepReplay.pull`): the cotangent of q'_h is the carry plus
-    gqs[h] plus jtg[h] (J^T gps[h]), that of qd'_h the carry plus gqds[h];
-    an absent one counts as zeros. Returns (gtau [H, D, B], gq0, gqd0)."""
-    replay = StepReplay(robot, _states_before(q0T, qs), _states_before(qd0T, qds), tauT, flags)
+def _cotangent_rows(robot, gqs, qs, ps, gps, ee_link_idx):
+    """The folded cotangent on every q'_h: gqs plus, with the ee trajectory,
+    J(q'_h)ᵀ gps[h] (None where neither is given)."""
+    if ps is None:
+        return gqs
+    jtg = ee_jacobian_t(robot, qs, ps, gps, ee_link_idx)
+    return jtg if gqs is None else gqs + jtg
+
+
+def _adjoint_reference(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, flags, ps=None, gps=None,
+                       ee_link_idx=None):
+    """The adjoint kernels' arithmetic in eager torch: over the windows of
+    `_windows` from the last, phase A (`replay_reference`) then phase B
+    (`adjoint_reference`); the cotangent of q'_h is the carry plus gqs[h]
+    plus J^T gps[h] (with ps), that of qd'_h the carry plus gqds[h]; an
+    absent one counts as zeros. Returns (gtau [H, D, B], gq0, gqd0)."""
+    H, D, B = tauT.shape
+    lay = replay_layout(D, gqs is not None or ps is not None, gqds is not None)
+    _, windows = _windows(H, lay, B, tauT.element_size())
+    q_in, qd_in = _states_before(q0T, qs), _states_before(qd0T, qds)
     gq, gqd = torch.zeros_like(q0T), torch.zeros_like(q0T)
     gtau = torch.empty_like(tauT)
-    for h in range(tauT.shape[0] - 1, -1, -1):
-        gqn = gq if gqs is None else gq + gqs[h]
-        if jtg is not None:
-            gqn = gqn + jtg[h]
-        gqdn = gqd if gqds is None else gqd + gqds[h]
-        gtau[h], gq, gqd = replay.pull(h, gqn, gqdn)
+    for h0, h1 in windows:
+        w = slice(h0, h1)
+        gqx = _cotangent_rows(robot, None if gqs is None else gqs[w], qs[w],
+                              None if ps is None else ps[w], None if gps is None else gps[w],
+                              ee_link_idx)
+        scr = replay_reference(robot, q_in[w], qd_in[w], tauT[w], flags, gqx,
+                               None if gqds is None else gqds[w])
+        gtau[w], gq, gqd = adjoint_reference(scr, lay, flags.dt, gq, gqd)
     return gtau, gq, gqd
 
 
@@ -427,8 +574,8 @@ def dyn_rollout_ee_bwd_reference(robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, e
     (gtau [H, D, B], gq0, gqd0 [D, B])."""
     _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds, ps, gps))
     flags = StepFlags(dt, use_damping, include_gravity, gravity)
-    jtg = ee_jacobian_t(robot, qs, ps, gps, ee_link_idx)
-    return _adjoint_reference(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, flags, jtg)
+    return _adjoint_reference(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, flags, ps, gps,
+                              ee_link_idx)
 
 
 def _states_before(x0, xs):
@@ -442,7 +589,7 @@ def _states_before(x0, xs):
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    sizes = (ctypes.c_int64 * 5)()
+    sizes = (ctypes.c_int64 * 10)()
     lib.dyn_rollout_layout.argtypes = [ctypes.c_void_p]
     lib.dyn_rollout_layout.restype = None
     lib.dyn_rollout_layout(sizes)
@@ -453,15 +600,20 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.sizeof(CHAIN_CTYPES[torch.float64]),
         MAX_LINKS,
     )
-    if tuple(sizes) != expect:
-        raise RuntimeError(f"csrc/dyn_rollout.cu layout {tuple(sizes)} != Python's {expect}")
+    if tuple(sizes[:5]) != expect:
+        raise RuntimeError(f"csrc/dyn_rollout.cu layout {tuple(sizes[:5])} != Python's {expect}")
+    _check_variants(sizes[:9], 5, "csrc/dyn_rollout.cu")
+    if sizes[9] != replay_layout(7, False, False).K:
+        raise RuntimeError(f"csrc/dyn_rollout.cu lays out {sizes[9]} scratch rows for 7 dofs, "
+                           f"Python {replay_layout(7, False, False).K}")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    n_ptrs = {"dyn_rollout_fwd": 6, "dyn_rollout_ee_fwd": 8, "dyn_rollout_bwd": 11,
-              "dyn_rollout_ee_bwd": 14}
-    for name, n in n_ptrs.items():
+    # (leading ints, pointers, trailing ints) of each entry, then B and the stream
+    shapes = {"dyn_rollout_fwd": (0, 6, 1), "dyn_rollout_ee_fwd": (0, 8, 1),
+              "dyn_rollout_replay": (1, 12, 5), "dyn_rollout_adjoint": (1, 5, 6)}
+    for name, (lead, n, trail) in shapes.items():
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{sfx}")
-            fn.argtypes = [p] * n + [i, i64, p]
+            fn.argtypes = [i] * lead + [p] * n + [i] * trail + [i64, p]
             fn.restype = ctypes.c_int
 
 
@@ -540,12 +692,135 @@ def dyn_rollout_ee_fwd(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping=True
 dyn_rollout_ee_fwd.launches = 0
 
 
+def _bwd_operands(robot, flags, ee_link_idx, ins):
+    """The kernels' constants, scratch layout and instantiation for a
+    backward call on `ins` (q0T, qd0T, tauT, qs, qds, ps, gps, gqs, gqds,
+    the absent ones None)."""
+    ps, gqs, gqds = ins[5], ins[7], ins[8]
+    tree = tree_struct(robot, flags)
+    ch = None if ps is None else chain_struct(robot, ee_link_idx)
+    lay = replay_layout(robot.n_dofs, gqs is not None or ps is not None, gqds is not None)
+    return tree, ch, lay, VARIANTS.index(kernel_variant(robot))
+
+
+def _replay_launch(tree, ch, variant, lay, ins, scr, h0, nh, B, dev):
+    """Phase A of stages h0 ... h0 + nh - 1 into scr. `ins` are (q0T, qd0T,
+    tauT, qs, qds, ps, gps, gqs, gqds), the absent ones None."""
+    _launch(
+        f"dyn_rollout_replay_{_suffix(scr.dtype)}",
+        (variant, ctypes.byref(tree), None if ch is None else ctypes.byref(ch),
+         *(_ptr(x) for x in ins), scr.data_ptr(), h0, nh, lay.K, lay.ox, lay.odx, B),
+        dev,
+    )
+
+
+def _adjoint_launch(tree, variant, lay, scr, gtau, gq0, gqd0, h0, nh, carry_in, B, dev):
+    """Phase B of stages h0 + nh - 1 ... h0 from scr; the carry in and out
+    in gq0, gqd0."""
+    _launch(
+        f"dyn_rollout_adjoint_{_suffix(scr.dtype)}",
+        (variant, ctypes.byref(tree), scr.data_ptr(), gtau.data_ptr(), gq0.data_ptr(),
+         gqd0.data_ptr(), h0, nh, lay.K, lay.ox, lay.odx, int(carry_in), B),
+        dev,
+    )
+
+
+def _bwd_kernels(robot, flags, ee_link_idx, q0T, qd0T, tauT, qs, qds, ps, gps, gqs, gqds):
+    """The adjoint on the card: per window of `_windows` from the last,
+    phase A then phase B, on the current stream. Returns (gtau, gq0, gqd0)
+    and the device launches made."""
+    H, D, B = tauT.shape
+    ins = (q0T, qd0T, tauT, qs, qds, ps, gps, gqs, gqds)
+    tree, ch, lay, variant = _bwd_operands(robot, flags, ee_link_idx, ins)
+    W, windows = _windows(H, lay, B, tauT.element_size())
+    gtau = torch.empty_like(tauT)
+    gq0, gqd0 = torch.empty_like(q0T), torch.empty_like(q0T)
+    scr = torch.empty((W, lay.K, B), dtype=tauT.dtype, device=tauT.device)
+    for h0, h1 in windows:
+        _replay_launch(tree, ch, variant, lay, ins, scr, h0, h1 - h0, B, tauT.device)
+        _adjoint_launch(tree, variant, lay, scr, gtau, gq0, gqd0, h0, h1 - h0, h1 != H, B,
+                        tauT.device)
+    return (gtau, gq0, gqd0), 2 * len(windows)
+
+
+def dyn_rollout_replay_reference(robot, q0T, qd0T, tauT, qs, qds, dt, use_damping=True,
+                                 include_gravity=True, gravity=GRAVITY, gqs=None, gqds=None,
+                                 ps=None, gps=None, ee_link_idx=None):
+    """Plain version of `dyn_rollout_replay`: `replay_reference` over every
+    stage."""
+    _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds, ps, gps))
+    flags = StepFlags(dt, use_damping, include_gravity, gravity)
+    gqx = _cotangent_rows(robot, gqs, qs, ps, gps, ee_link_idx)
+    return replay_reference(robot, _states_before(q0T, qs), _states_before(qd0T, qds), tauT, flags,
+                            gqx, gqds)
+
+
+def dyn_rollout_replay(robot, q0T, qd0T, tauT, qs, qds, dt, use_damping=True,
+                       include_gravity=True, gravity=GRAVITY, gqs=None, gqds=None, ps=None,
+                       gps=None, ee_link_idx=None):
+    """The adjoints' phase A alone (kernel `replay_kernel`), over every stage
+    at once: the scratch [H, K, B] of `replay_layout(D, gqs or ps given,
+    gqds given)`. With ps, gps and ee_link_idx the folded cotangent rows
+    hold J^T gps, as for `dyn_rollout_ee_bwd`. For holding the kernel's
+    phase A to its plain version, and timing it."""
+    H, D, B = _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds, ps, gps))
+    if q0T.device.type == "cpu":
+        return dyn_rollout_replay_reference(robot, q0T, qd0T, tauT, qs, qds, dt, use_damping,
+                                            include_gravity, gravity, gqs, gqds, ps, gps,
+                                            ee_link_idx)
+    ins = (q0T, qd0T, tauT, qs, qds, ps, gps, gqs, gqds)
+    _check_all_cuda(zip(("q0T", "qd0T", "tauT", "qs", "qds", "ps", "gps", "gqs", "gqds"), ins))
+    flags = StepFlags(dt, use_damping, include_gravity, gravity)
+    tree, ch, lay, variant = _bwd_operands(robot, flags, ee_link_idx, ins)
+    scr = torch.empty((H, lay.K, B), dtype=tauT.dtype, device=tauT.device)
+    if B:
+        _replay_launch(tree, ch, variant, lay, ins, scr, 0, H, B, tauT.device)
+    return scr
+
+
+def _check_scratch(robot, scr, gqx, gqdx):
+    lay = replay_layout(robot.n_dofs, gqx, gqdx)
+    if scr.dim() != 3 or scr.shape[1] != lay.K:
+        raise ValueError(f"scr must be [H, {lay.K}, B], got {tuple(scr.shape)}")
+    check_same(robot, [("scr", scr)])
+    return lay
+
+
+def dyn_rollout_adjoint_reference(robot, scr, dt, gqx: bool, gqdx: bool):
+    """Plain version of `dyn_rollout_adjoint`: `adjoint_reference` from a
+    zero carry."""
+    lay = _check_scratch(robot, scr, gqx, gqdx)
+    zero = scr.new_zeros((lay.D, scr.shape[2]))
+    return adjoint_reference(scr, lay, dt, zero, zero)
+
+
+def dyn_rollout_adjoint(robot, scr, dt, gqx: bool, gqdx: bool, use_damping=True,
+                        include_gravity=True, gravity=GRAVITY):
+    """The adjoints' phase B alone (kernel `adjoint_kernel`), over every
+    stage of the scratch scr [H, K, B] of `dyn_rollout_replay`, laid out
+    with or without the folded cotangent rows: (gtau [H, D, B], gq0,
+    gqd0)."""
+    if scr.device.type == "cpu":
+        return dyn_rollout_adjoint_reference(robot, scr, dt, gqx, gqdx)
+    lay = _check_scratch(robot, scr, gqx, gqdx)
+    _check_cuda(scr, "scr")
+    H, _, B = scr.shape
+    tree = tree_struct(robot, StepFlags(dt, use_damping, include_gravity, gravity))
+    gtau = scr.new_empty((H, lay.D, B))
+    gq0, gqd0 = scr.new_empty((lay.D, B)), scr.new_empty((lay.D, B))
+    if B:
+        _adjoint_launch(tree, VARIANTS.index(kernel_variant(robot)), lay, scr.contiguous(), gtau,
+                        gq0, gqd0, 0, H, False, B, scr.device)
+    return gtau, gq0, gqd0
+
+
 def dyn_rollout_bwd(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, dt, use_damping=True,
                     include_gravity=True, gravity=GRAVITY):
     """Kernel `dyn_rollout_bwd`: the VJP of `dyn_rollout_fwd` for the
     cotangents gqs on qs and gqds on qds ([H, D, B] each; either may be None,
-    and then no tensor is read for it), from its saved outputs. Returns
-    (gtau [H, D, B], gq0, gqd0 [D, B])."""
+    and then no tensor is read for it), from its saved outputs, in two
+    phases a window (module docstring). Returns (gtau [H, D, B], gq0, gqd0
+    [D, B])."""
     H, D, B = _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds))
     if q0T.device.type == "cpu":
         return dyn_rollout_bwd_reference(
@@ -554,21 +829,17 @@ def dyn_rollout_bwd(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, dt, use_damping=
     ins = (("q0T", q0T), ("qd0T", qd0T), ("tauT", tauT), ("qs", qs), ("qds", qds),
            ("gqs", gqs), ("gqds", gqds))
     _check_all_cuda(ins)
-    tree = tree_struct(robot, StepFlags(dt, use_damping, include_gravity, gravity))
-    gtau = torch.empty_like(tauT)
-    gq0, gqd0 = torch.empty_like(q0T), torch.empty_like(q0T)
-    if B:
-        _launch(
-            f"dyn_rollout_bwd_{_suffix(tauT.dtype)}",
-            (ctypes.byref(tree), *(_ptr(x) for _, x in ins),
-             gtau.data_ptr(), gq0.data_ptr(), gqd0.data_ptr(), H, B),
-            tauT.device,
-        )
-        dyn_rollout_bwd.launches += 1
-    return gtau, gq0, gqd0
+    flags = StepFlags(dt, use_damping, include_gravity, gravity)
+    if not B:
+        return torch.empty_like(tauT), torch.empty_like(q0T), torch.empty_like(q0T)
+    out, n = _bwd_kernels(robot, flags, None, q0T, qd0T, tauT, qs, qds, None, None, gqs, gqds)
+    dyn_rollout_bwd.launches += 1
+    dyn_rollout_bwd.device_launches += n
+    return out
 
 
 dyn_rollout_bwd.launches = 0
+dyn_rollout_bwd.device_launches = 0
 
 
 def dyn_rollout_ee_bwd(robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx,
@@ -576,8 +847,9 @@ def dyn_rollout_ee_bwd(robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx
                        gqs=None, gqds=None):
     """Kernel `dyn_rollout_ee_bwd`: the VJP of `dyn_rollout_ee_fwd` for ee
     cotangents gps [H, 3, B] and, optionally, gqs on qs and gqds on qds
-    ([H, D, B]; None reads no tensor), from its saved outputs. Returns (gtau
-    [H, D, B], gq0, gqd0 [D, B])."""
+    ([H, D, B]; None reads no tensor), from its saved outputs, in two phases
+    a window (module docstring). Returns (gtau [H, D, B], gq0, gqd0 [D,
+    B])."""
     H, D, B = _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds, ps, gps))
     if q0T.device.type == "cpu":
         return dyn_rollout_ee_bwd_reference(
@@ -587,22 +859,17 @@ def dyn_rollout_ee_bwd(robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx
     ins = (("q0T", q0T), ("qd0T", qd0T), ("tauT", tauT), ("qs", qs), ("qds", qds),
            ("ps", ps), ("gps", gps), ("gqs", gqs), ("gqds", gqds))
     _check_all_cuda(ins)
-    tree = tree_struct(robot, StepFlags(dt, use_damping, include_gravity, gravity))
-    ch = chain_struct(robot, ee_link_idx)
-    gtau = torch.empty_like(tauT)
-    gq0, gqd0 = torch.empty_like(q0T), torch.empty_like(q0T)
-    if B:
-        _launch(
-            f"dyn_rollout_ee_bwd_{_suffix(tauT.dtype)}",
-            (ctypes.byref(tree), ctypes.byref(ch), *(_ptr(x) for _, x in ins),
-             gtau.data_ptr(), gq0.data_ptr(), gqd0.data_ptr(), H, B),
-            tauT.device,
-        )
-        dyn_rollout_ee_bwd.launches += 1
-    return gtau, gq0, gqd0
+    flags = StepFlags(dt, use_damping, include_gravity, gravity)
+    if not B:
+        return torch.empty_like(tauT), torch.empty_like(q0T), torch.empty_like(q0T)
+    out, n = _bwd_kernels(robot, flags, ee_link_idx, q0T, qd0T, tauT, qs, qds, ps, gps, gqs, gqds)
+    dyn_rollout_ee_bwd.launches += 1
+    dyn_rollout_ee_bwd.device_launches += n
+    return out
 
 
 dyn_rollout_ee_bwd.launches = 0
+dyn_rollout_ee_bwd.device_launches = 0
 
 
 def _contiguous(g):

@@ -31,7 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ...models.structs import JOINT_FIXED, JOINT_REVOLUTE, RobotStruct
+from ...models.structs import RobotStruct
 from ...trajopt.rollout import _clip, _effort_bound
 from ..dynamics_scalar import ldl_solve_scalar, mass_matrix_scalar, rnea_scalar
 from . import build, rng
@@ -47,16 +47,20 @@ from .fk import (
     joint_vjp,
 )
 from .rollout import (
-    MAX_LINKS,
+    SERIAL_SHAPES,
     TREE_CTYPES,
+    VARIANTS,
     StepFlags,
-    StepReplay,
+    _check_variants,
     _clip_grad,
     _states_before,
     check_constant_robot,
     check_same,
     dyn_rollout_ee_fwd_reference,
     ee_jacobian_t,
+    kernel_variant,
+    pull_stage,
+    replay_reference,
     tree_struct,
 )
 
@@ -292,43 +296,6 @@ kinematic_adam_solve.launches = 0
 # The dynamic whole solve: kernel K9 `dyn_solve` and its prologue.
 # ---------------------------------------------------------------------------
 
-# The instantiations of K9 and K10 by their code (csrc/dyn_step.cuh
-# `DrmVariant`): the generic builds for up to 16 and 32 links and dofs,
-# and one per serial-chain shape (links, dofs) whose topology is fixed at
-# compile time (`DrmSerial`).
-VARIANTS = ("generic16", "generic32", "serial9x7", "serial4x2")
-SERIAL_SHAPES = {(9, 7): "serial9x7", (4, 2): "serial4x2"}
-
-
-def kernel_variant(robot: RobotStruct) -> str:
-    """The K9/K10 instantiation for the robot: "serial{L}x{D}" for a serial
-    chain of a built shape (link l's parent l - 1, links 1..D revolute with
-    dofs 0..D-1, the rest fixed: iiwa, panda_no_gripper, fetch_arm, the
-    2-link robot), else "generic16" or "generic32" by its link and dof
-    counts. Raises for a robot beyond 32 links or dofs."""
-    L, D = robot.n_links, robot.n_dofs
-    if L > MAX_LINKS or D > MAX_DOF:
-        raise ValueError(f"{L} links and {D} dofs exceed the kernels' {MAX_LINKS} and {MAX_DOF}")
-    types = (JOINT_FIXED,) + (JOINT_REVOLUTE,) * D + (JOINT_FIXED,) * (L - 1 - D)
-    serial = (
-        all(robot.parent[l] == l - 1 for l in range(1, L))
-        and tuple(robot.joint_types) == types
-        and tuple(robot.dof_links) == tuple(range(1, D + 1))
-    )
-    if serial and (L, D) in SERIAL_SHAPES:
-        return SERIAL_SHAPES[(L, D)]
-    return "generic16" if L <= 16 and D <= 16 else "generic32"
-
-
-def _check_variants(sizes, first: int, source: str) -> None:
-    """The serial shapes a kernel library reports from `first` on match
-    SERIAL_SHAPES."""
-    shapes = tuple(zip(sizes[first::2], sizes[first + 1::2]))
-    if shapes != tuple(SERIAL_SHAPES):
-        raise RuntimeError(
-            f"{source} builds serial shapes {shapes}, Python expects {tuple(SERIAL_SHAPES)}")
-
-
 class _DynSolveParams(ctypes.Structure):
     _fields_ = [
         ("H", ctypes.c_int), ("n_iters", ctypes.c_int),
@@ -456,7 +423,7 @@ def dynamic_adam_solve_reference(
 ):
     """Plain version of K9 `dyn_solve`: the kernel's arithmetic per Adam
     iteration from the plain rollout pieces (`dyn_rollout_ee_fwd_reference`
-    forward, `StepReplay` backward), the effort box inside the
+    forward, `replay_reference` and `pull_stage` backward), the effort box inside the
     step, the cost gradient chained through H0ᵀ, and the optax-form Adam
     update applied to each stage during the reverse sweep, as
     ops/pallas/solver.py:231-243 applies it."""
@@ -485,10 +452,11 @@ def dynamic_adam_solve_reference(
         alpha, ibc2 = float(c["bc"][2 * t]), float(c["bc"][2 * t + 1])
         jtg = ee_jacobian_t(robot, qs, ps, c["gpe_w"] * (ps - goalT), ee_link_idx)
         mask = None if emax is None else _clip_grad(tau, -emax, emax)
-        replay = StepReplay(robot, _states_before(q0T, qs), _states_before(qd0T, qds), box(tau), flags)
+        scr = replay_reference(robot, _states_before(q0T, qs), _states_before(qd0T, qds), box(tau),
+                               flags)
         gq, gqd = torch.zeros_like(q0T), torch.zeros_like(q0T)
         for h in range(H - 1, -1, -1):
-            lam, gq, gqd = replay.pull(h, gq + jtg[h], gqd)
+            lam, gq, gqd = pull_stage(scr[h], D, dt, gq + jtg[h], gqd)
             gt = (lam if mask is None else lam * mask[h]) + c["geff_w"] * (tau[h] - tau_refT)
             ga = gt if H0 is None else torch.einsum("deb,db->eb", H0, gt)
             m[h] = c["b1"] * m[h] + c["omb1"] * ga

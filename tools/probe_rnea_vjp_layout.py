@@ -27,15 +27,12 @@ and for each build:
 - keeps ptxas's report (registers, stack frame, spills) and the SASS of
   `rnea_bwd_kernel` (instruction count, local loads and stores, and the
   text itself, gzipped under the output directory's `sass/`);
-- with `--ab`, times K6 and K8 (the other users of `drm_rnea_vjp`) at
-  iiwa H=50 B=4096 float32 with `drm_rnea_vjp` inlined, as shipped, and kept
-  a call (`__noinline__`), alternating within the run;
 - with `--sanitize`, runs the float32 iiwa case of the `two_arrays_fn` build at
   B=256 under `compute-sanitizer` (memcheck, then initcheck).
 
 Run from the repo root on a machine with one CUDA card and nvcc:
 
-    python3 tools/probe_rnea_vjp_layout.py [--ab] [--sanitize] [--out DIR]
+    python3 tools/probe_rnea_vjp_layout.py [--sanitize] [--out DIR]
 
 It prints one line per case and writes `rnea_vjp_probe.json` into the
 output directory (`--out`, by default build/rnea_vjp_probe/ of the checkout,
@@ -62,8 +59,6 @@ sys.path.insert(0, str(ROOT))
 import differentiable_robot_model_tpu_torch as drt  # noqa: E402
 from differentiable_robot_model_tpu_torch.ops.kernels import build  # noqa: E402
 from differentiable_robot_model_tpu_torch.ops.kernels import rnea as kn  # noqa: E402
-from differentiable_robot_model_tpu_torch.ops.kernels import rollout as kr  # noqa: E402
-from differentiable_robot_model_tpu_torch.ops.kernels import solver as ksolver  # noqa: E402
 from differentiable_robot_model_tpu_torch.ops.kernels.rollout import StepFlags, tree_struct  # noqa: E402
 
 PROBE_DIR = ROOT / "build" / "rnea_vjp_probe"
@@ -270,80 +265,9 @@ def sanitize(tool: str):
             "tail": (run.stdout + run.stderr)[-1500:]}
 
 
-def ab_dynamics(rounds=4):
-    """The other users of `drm_rnea_vjp` with it inlined (the shipped csrc/)
-    and kept a call (a copy of csrc/ with `__noinline__`): K6 and K8 at
-    iiwa H=50 B=4096 float32, through their wrappers, with the
-    library under each wrapper swapped; `rounds` rounds in alternating order,
-    median of 10 by CUDA events each. Also the largest difference between
-    the two builds' outputs."""
-    noinline_dir = PROBE_DIR / "csrc_noinline"
-    noinline_dir.mkdir(parents=True, exist_ok=True)
-    for f in build.CSRC.iterdir():
-        (noinline_dir / f.name).write_text(f.read_text())
-    cuh = noinline_dir / "dyn_step.cuh"
-    text = cuh.read_text()
-    if "__device__ void drm_rnea_vjp" not in text:
-        raise RuntimeError("csrc/dyn_step.cuh no longer declares drm_rnea_vjp as this probe expects")
-    cuh.write_text(text.replace("__device__ void drm_rnea_vjp", "__device__ __noinline__ void drm_rnea_vjp"))
-    procs = {}
-    for tag, src in (("inline", build.CSRC), ("noinline", noinline_dir)):
-        for name in ("dyn_rollout",):
-            out = PROBE_DIR / f"lib{name}-{tag}.so"
-            procs[(tag, name)] = subprocess.Popen(
-                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for (tag, name), p in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name} ({tag}):\n{log[-2000:]}")
-        lib = ctypes.CDLL(str(PROBE_DIR / f"lib{name}-{tag}.so"))
-        kr._configure(lib)
-        libs[(tag, name)] = lib
-    model = drt.DifferentiableKUKAiiwa(device="cuda")
-    s, ee = model.struct, model.struct.link_index("iiwa_link_ee")
-    H, B, D, dt = 50, 4096, model.n_dofs, 0.02
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    q0T = (torch.rand((D, B), generator=gen, device="cuda") * 2 - 1) * 0.5
-    qd0T = torch.zeros_like(q0T)
-
-    def use(tag):
-        build._loaded["dyn_rollout"] = libs[(tag, "dyn_rollout")]
-
-    use("inline")
-    tr, H0, a0 = ksolver.dyn_prologue(s, q0T, None, H)
-    tau = (tr[None] + torch.randn((H, D, B), generator=gen, device="cuda")).contiguous()
-    roll = kr.dyn_rollout_ee_fwd(s, q0T, qd0T, tau, dt, ee)
-    gqs = torch.randn((H, D, B), generator=gen, device="cuda")
-    gps = torch.randn((H, 3, B), generator=gen, device="cuda")
-    calls = {
-        "dyn_rollout_bwd": lambda: kr.dyn_rollout_bwd(s, q0T, qd0T, tau, *roll[:2], gqs, None, dt),
-        "dyn_rollout_ee_bwd": lambda: kr.dyn_rollout_ee_bwd(s, q0T, qd0T, tau, *roll, gps, dt, ee),
-    }
-    result = {"times_ms": {k: {"noinline": [], "inline": []} for k in calls}}
-    outs = {}
-    for r in range(rounds):
-        for tag in (("noinline", "inline") if r % 2 == 0 else ("inline", "noinline")):
-            use(tag)
-            for k, fn in calls.items():
-                result["times_ms"][k][tag].append(median_ms(fn, reps=10, warmup=2))
-                outs[(tag, k)] = fn()
-    result["max_abs_diff"] = {
-        k: max((a - b).abs().max().item() for a, b in zip(outs[("noinline", k)], outs[("inline", k)]))
-        for k in calls}
-    build._loaded.pop("dyn_rollout")
-    for k, v in result["times_ms"].items():
-        print(f"[probe] {k}: noinline " + " ".join(f"{t:.3f}" for t in v["noinline"]) + " ms; inline "
-              + " ".join(f"{t:.3f}" for t in v["inline"]) + f" ms; max |diff| {result['max_abs_diff'][k]:.3e}",
-              flush=True)
-    return result
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sanitize", action="store_true")
-    ap.add_argument("--ab", action="store_true", help="time K6 and K8 with drm_rnea_vjp inlined or not")
     ap.add_argument("--only", help="run one already compiled build (used under the sanitizer)")
     ap.add_argument("--small", action="store_true", help="iiwa float32 at B=256 only")
     ap.add_argument("--out", type=Path, default=PROBE_DIR, help="where the report and SASS go")
@@ -374,8 +298,6 @@ def main() -> int:
         info["sass"] = sass_stats(tag, a.out)
         print(f"[probe] {tag}: sass {info['sass']}", flush=True)
         info["cases"] = run_build(tag, CASES)
-    if a.ab:
-        report["ab_dynamics"] = ab_dynamics()
     if a.sanitize:
         report["sanitizer"] = [sanitize(t) for t in ("memcheck", "initcheck")]
         for r in report["sanitizer"]:

@@ -1,5 +1,6 @@
-"""Time K9 `dyn_solve` and K10 `mppi_solve` of one or two checkouts of the
-port on one CUDA card, beside K5 and K7.
+"""Time K9 `dyn_solve`, K10 `mppi_solve`, K6 `dyn_rollout_bwd` and K8
+`dyn_rollout_ee_bwd` of one or two checkouts of the port on one CUDA card,
+beside K5 and K7.
 
     python3 tools/time_solves.py [--check] [--detail]   # this checkout
     python3 tools/time_solves.py --ab DIR [--check]     # and the checkout at DIR
@@ -9,20 +10,24 @@ one checkout and builds that checkout's kernels there (nvcc, into its
 `build/kernels/`): K9 at iiwa B=4096, H=50, 10 iterations (the dynamic MPC
 main path's shape), K10 at iiwa B=256, K=128, H=50, 10 iterations (the MPPI
 main path's), K5 `dyn_rollout_fwd` and K7 `dyn_rollout_ee_fwd` at iiwa
-B=4096, H=50, each the median of 20 launches by CUDA events after 3
-warm-ups, and the ratios K9/K5 and K10/K7 (K5 and K7 are the same code in
-both checkouts, so the ratios carry from one call to the next). Each prints
-ptxas's report for K9's and K10's kernels (registers, stack frame, spills)
-and one JSON line. With `--ab DIR` the checkouts run in turns: DIR's, this
-one's, this one's, DIR's, then a summary line of the medians. With
-`--check`, this checkout's K9 and K10 are first held to their plain
-versions at small shapes (K9: B=64, H=10, 5 iterations, the effort box off
-and on; K10: B=16, K=64, H=10, 3 iterations, float64), and the run fails
-if they disagree (K9 torques within 5e-3, K10 within 1e-9 of the largest
-torque). With `--detail`, this checkout's K9 is also timed on iiwa with
+B=4096, H=50, K6 (a cotangent on qs) and K8 (one on the ee trajectory) at
+the same shape, and, where the checkout has them, K6's and K8's two phases
+alone (`dyn_rollout_replay`, `dyn_rollout_adjoint`), each the median of 20
+launches by CUDA events after 3 warm-ups, and the ratios K9/K5 and K10/K7
+(K5 and K7 are the same code in both checkouts, so the ratios carry from
+one call to the next). Each prints ptxas's report for K9's, K10's and
+K6/K8's kernels (registers, stack frame, spills) and one JSON line. With
+`--ab DIR` the checkouts run in turns: DIR's, this one's, this one's,
+DIR's, then a summary line of the medians. With `--check`, this
+checkout's K9, K10, K6 and K8 are first held to their plain versions at
+small shapes (K9: B=64, H=10, 5 iterations, the effort box off and on;
+K10: B=16, K=64, H=10, 3 iterations, float64; K6 and K8: B=64, H=10,
+float64, every cotangent at once), and the run fails if they disagree (K9
+torques within 5e-3, K10, K6 and K8 within 1e-9 of the largest entry). With `--detail`, this checkout's K9 is also timed on iiwa with
 the generic 16-link build in place of the serial one and on the 2-link
 robot, K10 alone at B=1 (one block: its dependent chain), and the SASS
-instructions of each K9 and K10 instantiation are counted (`cuobjdump`).
+instructions of each K9, K10 and K6/K8-phase instantiation are counted
+(`cuobjdump`).
 
 A second checkout of a parent commit can be made with `git archive`
 (`mkdir -p build/parent && git archive HEAD~1 differentiable_robot_model_tpu_torch
@@ -114,7 +119,9 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
                               goal_weight=GOAL_W, effort_weight=EFFORT_W)
     out = {"root": str(root), "card": torch.cuda.get_device_name(0), "build_s": secs,
            "ptxas": _ptxas(build.compiler_report("dyn_solve"), "dyn_solve_")
-           + _ptxas(build.compiler_report("mppi_solve"), "mppi_kernel")}
+           + _ptxas(build.compiler_report("mppi_solve"), "mppi_kernel")
+           + [line for kernel in ("bwd_kernel", "replay_kernel", "adjoint_kernel")
+              for line in _ptxas(build.compiler_report("dyn_rollout"), kernel)]}
     if check:
         q0T, qd0T, goalT = problem(64, 0.3)
         tr, H0, a0 = ks.dyn_prologue(s, q0T, None, 10)
@@ -136,6 +143,23 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
         out["check_k10_f64"] = e
         if not e <= 1e-9:
             raise AssertionError(f"float64 K10 disagrees with its plain version: {e}")
+        gen = torch.Generator(device=dev).manual_seed(5)
+        q0T, qd0T = (x[:, :64].double().contiguous() for x in problem(64, 0.3)[:2])
+        tau = torch.randn((10, D, 64), generator=gen, device=dev, dtype=torch.float64)
+        gqs, gqds = (torch.randn((10, D, 64), generator=gen, device=dev, dtype=torch.float64)
+                     for _ in range(2))
+        gps = torch.randn((10, 3, 64), generator=gen, device=dev, dtype=torch.float64)
+        qs, qds, ps = kr.dyn_rollout_ee_fwd(s64, q0T, qd0T, tau, DT, ee)
+        for tag, kern, ref, args, opt in (
+                ("k6", kr.dyn_rollout_bwd, kr.dyn_rollout_bwd_reference,
+                 (s64, q0T, qd0T, tau, qs, qds, gqs, gqds, DT), {}),
+                ("k8", kr.dyn_rollout_ee_bwd, kr.dyn_rollout_ee_bwd_reference,
+                 (s64, q0T, qd0T, tau, qs, qds, ps, gps, DT, ee), dict(gqs=gqs, gqds=gqds))):
+            e = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(kern(*args, **opt), ref(*args, **opt)))
+            out[f"check_{tag}_f64"] = e
+            if not e <= 1e-9:
+                raise AssertionError(f"float64 {tag.upper()} disagrees with its plain version: {e}")
     q0T, qd0T, goalT = problem(B, 0.3)
     tr, H0, a0 = ks.dyn_prologue(s, q0T, None, H)
     tau = (tr[None] + torch.randn((H, D, B), generator=torch.Generator(device=dev).manual_seed(4),
@@ -145,6 +169,23 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
     out["dyn_rollout_fwd_ms"] = _sync_ms(torch, lambda: kr.dyn_rollout_fwd(s, q0T, qd0T, tau, DT))
     out["dyn_rollout_ee_fwd_ms"] = _sync_ms(
         torch, lambda: kr.dyn_rollout_ee_fwd(s, q0T, qd0T, tau, DT, ee))
+    # K6 with a cotangent on qs, K8 with one on the ee trajectory, and their
+    # phases where this checkout has them apart
+    gen = torch.Generator(device=dev).manual_seed(6)
+    qs, qds, ps = kr.dyn_rollout_ee_fwd(s, q0T, qd0T, tau, DT, ee)
+    gqs = torch.randn((H, D, B), generator=gen, device=dev)
+    gps = torch.randn((H, 3, B), generator=gen, device=dev)
+    out["dyn_rollout_bwd_ms"] = _sync_ms(
+        torch, lambda: kr.dyn_rollout_bwd(s, q0T, qd0T, tau, qs, qds, gqs, None, DT))
+    out["dyn_rollout_ee_bwd_ms"] = _sync_ms(
+        torch, lambda: kr.dyn_rollout_ee_bwd(s, q0T, qd0T, tau, qs, qds, ps, gps, DT, ee))
+    if hasattr(kr, "dyn_rollout_replay"):
+        for tag, opt in (("k6", dict(gqs=gqs)), ("k8", dict(ps=ps, gps=gps, ee_link_idx=ee))):
+            scr = kr.dyn_rollout_replay(s, q0T, qd0T, tau, qs, qds, DT, **opt)
+            out[f"{tag}_replay_ms"] = _sync_ms(
+                torch, lambda: kr.dyn_rollout_replay(s, q0T, qd0T, tau, qs, qds, DT, **opt))
+            out[f"{tag}_adjoint_ms"] = _sync_ms(
+                torch, lambda: kr.dyn_rollout_adjoint(s, scr, DT, True, False))
     q0T, qd0T, goalT = problem(MPPI_B, 0.4)
     tr, H0, a0 = ks.dyn_prologue(s, q0T, None, H)
     margs = (s, q0T, qd0T, goalT, tr, H0, a0, 7, ee)
@@ -173,11 +214,12 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
 
 
 def _sass_counts(build):
-    """The SASS instruction count of each K9 and K10 instantiation
-    (`cuobjdump -sass`), where the toolkit has cuobjdump."""
+    """The SASS instruction count of each K9, K10 and K6/K8-phase
+    instantiation (`cuobjdump -sass`), where the toolkit has cuobjdump."""
     exe = Path(build.nvcc()).with_name("cuobjdump")
     counts = {}
-    for name, kernel in (("dyn_solve", "dyn_solve_"), ("mppi_solve", "mppi_kernel")):
+    for name, kernel in (("dyn_solve", "dyn_solve_"), ("mppi_solve", "mppi_kernel"),
+                         ("dyn_rollout", "replay_kernel"), ("dyn_rollout", "adjoint_kernel")):
         if not exe.exists():
             break
         sass = subprocess.run([str(exe), "-sass", str(build.library_path(name))],
@@ -201,7 +243,7 @@ def main() -> int:
                     "to their plain versions at small shapes")
     ap.add_argument("--detail", action="store_true", help="also time this checkout's K9 on "
                     "iiwa's generic build and on the 2-link robot, K10 at B=1, and count the "
-                    "SASS instructions of each instantiation")
+                    "SASS instructions of each K9, K10 and K6/K8-phase instantiation")
     ap.add_argument("--root", type=Path, help=argparse.SUPPRESS)  # one measurement, in this process
     a = ap.parse_args()
     if a.root is not None:
@@ -226,12 +268,13 @@ def main() -> int:
             return p.returncode
         runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
     keys = ("dyn_solve_ms", "mppi_solve_ms", "dyn_rollout_fwd_ms", "dyn_rollout_ee_fwd_ms",
-            "k9_over_k5", "k10_over_k7")
+            "dyn_rollout_bwd_ms", "dyn_rollout_ee_bwd_ms", "k6_replay_ms", "k6_adjoint_ms",
+            "k8_replay_ms", "k8_adjoint_ms", "k9_over_k5", "k10_over_k7")
     summary = {"card": card}
     for label, root in (("this", ROOT), ("other", a.ab)):
         mine = [r for r in runs if root is not None and Path(r["root"]) == root]
         if mine:
-            summary[label] = {k: [r[k] for r in mine] for k in keys}
+            summary[label] = {k: [r[k] for r in mine] for k in keys if k in mine[0]}
     print(json.dumps({"summary": summary}), flush=True)
     return 0
 
