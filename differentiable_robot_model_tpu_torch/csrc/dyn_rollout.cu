@@ -396,18 +396,6 @@ int launch_adjoint(const Tree<T>* tr, const T* scr, T* gtau, T* gq, T* gqd, int 
   return int(cudaGetLastError());
 }
 
-// The instantiation by the code ops/kernels/solver.py `kernel_variant` passes.
-template <typename F>
-int by_variant(int variant, F run) {
-  switch (variant) {
-    case DRM_GENERIC16: return run(DrmGeneric<16>{});
-    case DRM_GENERIC32: return run(DrmGeneric<32>{});
-    case DRM_SERIAL_9_7: return run(DrmSerial<9, 7>{});
-    case DRM_SERIAL_4_2: return run(DrmSerial<4, 2>{});
-  }
-  return int(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
 extern "C" {
@@ -440,7 +428,7 @@ void dyn_rollout_layout(int64_t* out) {
                                const T* qd0, const T* tau, const T* qs, const T* qds,             \
                                const T* ps, const T* gps, const T* gqs, const T* gqds, T* scr,    \
                                int h0, int nh, int K, int ox, int odx, int64_t B, void* stream) { \
-    return by_variant(variant, [&](auto p) {                                                      \
+    return drm_by_variant(variant, [&](auto p) {                                                  \
       return launch_replay<T, decltype(p)>(tr, ch, q0, qd0, tau, qs, qds, ps, gps, gqs, gqds,     \
                                            scr, h0, nh, K, ox, odx, B, (cudaStream_t)stream);     \
     });                                                                                           \
@@ -448,7 +436,7 @@ void dyn_rollout_layout(int64_t* out) {
   int dyn_rollout_adjoint_##SFX(int variant, const Tree<T>* tr, const T* scr, T* gtau, T* gq,    \
                                 T* gqd, int h0, int nh, int K, int ox, int odx, int carry_in,     \
                                 int64_t B, void* stream) {                                        \
-    return by_variant(variant, [&](auto p) {                                                      \
+    return drm_by_variant(variant, [&](auto p) {                                                  \
       return launch_adjoint<T, decltype(p)>(tr, scr, gtau, gq, gqd, h0, nh, K, ox, odx,           \
                                             carry_in, B, (cudaStream_t)stream);                   \
     });                                                                                           \

@@ -21,14 +21,14 @@
 // q̄ = ḡq' - (∂RNEA(q, qd, qdd*)/∂q)ᵀ λ and q̄d = x̄ - (∂RNEA/∂qd)ᵀ λ
 // (K6/K8 in dyn_rollout.cu, K9 in dyn_solve.cu; plain version
 // ops/kernels/rollout.py `replay_reference` and `pull_stage`). The RNEA
-// partials come from reverse sweeps of the RNEA (`drm_rr_rnea_reverse`);
-// `drm_rnea_vjp` below, 2D forward sweeps on dual numbers, serves
-// `rnea_bwd` (rnea.cu) alone.
+// partials come from reverse sweeps of the RNEA (`drm_rr_rnea_reverse`),
+// which also give K4's VJP `rnea_bwd` (rnea.cu) all three of its
+// cotangents.
 //
 // K5, K7, the prologue and K4 run the first functions of this file; K6,
-// K8, K9 and K10 the register-resident step at its end (`drm_rr_*`): the
-// same arithmetic on a topology policy that fixes a serial chain's shape at
-// compile time.
+// K8, K9, K10 and `rnea_bwd` the register-resident step at its end
+// (`drm_rr_*`): the same arithmetic on a topology policy that fixes a serial
+// chain's shape at compile time.
 #pragma once
 
 #include <cstdint>
@@ -68,43 +68,6 @@ struct Tree {
   T emax[DRM_MAX_DOF];        // effort box, inf where unbounded
   TreeLink<T> link[DRM_MAX_LINKS];
 };
-
-// ---- forward-mode dual numbers ---------------------------------------------
-
-template <typename T>
-struct Dual {
-  T v, t;
-  __device__ __forceinline__ Dual() {}
-  __device__ __forceinline__ Dual(T v_) : v(v_), t(T(0)) {}
-  __device__ __forceinline__ Dual(T v_, T t_) : v(v_), t(t_) {}
-};
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator+(Dual<T> a, Dual<T> b) { return {a.v + b.v, a.t + b.t}; }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator-(Dual<T> a, Dual<T> b) { return {a.v - b.v, a.t - b.t}; }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator-(Dual<T> a) { return {-a.v, -a.t}; }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator*(Dual<T> a, Dual<T> b) {
-  return {a.v * b.v, a.t * b.v + a.v * b.t};
-}
-template <typename T>
-__device__ __forceinline__ Dual<T> operator*(T a, Dual<T> b) { return {a * b.v, a * b.t}; }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator*(Dual<T> a, T b) { return {a.v * b, a.t * b}; }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator-(T a, Dual<T> b) { return {a - b.v, -b.t}; }
-template <typename T>
-__device__ __forceinline__ Dual<T> operator+(Dual<T> a, T b) { return {a.v + b, a.t}; }
-
-template <typename T>
-__device__ __forceinline__ void drm_sincos(Dual<T> x, Dual<T>* s, Dual<T>* c) {
-  T sv, cv;
-  drm_sincos(x.v, &sv, &cv);
-  *s = {sv, cv * x.t};
-  *c = {cv, -sv * x.t};
-}
 
 // ---- small vector helpers (S: lane value, T: robot constant) ---------------
 
@@ -473,37 +436,6 @@ __device__ void drm_fd_step(const Tree<T>& tr, const T* q, const T* qd, const T*
   }
 }
 
-// (∂RNEA(q, qd, qdd)/∂(q, qd))ᵀ w into jac[2D]: jac[k] = Σ_d w_d ∂τ_d/∂q_k
-// for k < D and Σ_d w_d ∂τ_d/∂qd_{k-D} for k >= D, with the tree's gravity
-// and damping, from 2D forward sweeps of the RNEA on dual numbers, one
-// tangent direction each; `rnea_bwd` (rnea.cu:83) is its only user. All 2D
-// partials go into the one array `jac`: with the q and qd partials written
-// into two arrays of the caller instead, nvcc 12.9 -O3 gave one of them the
-// local-memory slot of this loop's force accumulator, which overwrote it
-// (tools/probe_rnea_vjp_layout.py). `__noinline__` would keep the loop's
-// arrays in a frame of their own, at a cost of 5-10% on its caller;
-// chip_smoke.py instead holds every build of `rnea_bwd` against its plain
-// version.
-template <typename T, int NL, int ND>
-__device__ void drm_rnea_vjp(const Tree<T>& tr, const T* q, const T* qd, const T* qdd, const T* w,
-                             T* jac) {
-  const int D = tr.D;
-  for (int k = 0; k < 2 * D; ++k) {
-    Dual<T> qv[ND], qdv[ND], qddv[ND], tauv[ND];
-    for (int d = 0; d < D; ++d) {
-      qv[d] = Dual<T>(q[d], k == d ? T(1) : T(0));
-      qdv[d] = Dual<T>(qd[d], k == D + d ? T(1) : T(0));
-      qddv[d] = Dual<T>(qdd[d]);
-    }
-    Dual<T> Rl[NL][9], tl[NL][3];
-    drm_local_all<Dual<T>, T, NL>(tr, qv, Rl, tl);
-    drm_rnea<Dual<T>, T, NL>(tr, Rl, tl, qdv, qddv, tauv);
-    T j = T(0);
-    for (int d = 0; d < D; ++d) j = j + w[d] * tauv[d].t;
-    jac[k] = j;
-  }
-}
-
 // ---- the register-resident step (K6/K8's backward, K9, K10) -----------------
 //
 // The functions below take the robot's topology from a policy P: the link
@@ -710,13 +642,17 @@ struct DrmLocalRnea {
 // reverse sweep of the RNEA whose forward `s` holds (`DrmLocalRnea` or
 // `DrmSharedRnea`): the plain version's arithmetic
 // (ops/dynamics_scalar.py `rnea_vjp_scalar`, whose docstring gives the
-// identities), line for line. Both partials go into the one array `jac`,
-// the form nvcc 12.9 compiles correctly for `drm_rnea_vjp` (F5). `unit` >= 0
-// says that lam is the unit cotangent on that dof: on a serial chain the
-// links up to its joint's parent then carry no force cotangent, and their
-// share of the sweeps (the totals' reverse, the link forces' reverse) is
-// skipped.
-template <typename T, class P, class S>
+// identities), line for line. With QDD, also (∂RNEA/∂qdd)ᵀ lam = M(q) lam
+// into jac[2D + k]: a joint's qdd enters only its own link's angular
+// (revolute) or linear (prismatic) acceleration, along its axis, so its
+// partial is the axis dotted with that acceleration's cotangent, which the
+// sweep carries anyway. Every partial goes into the one array `jac`: nvcc
+// 12.9 miscompiled the form with two local arrays filled by one inlined
+// device function (ROADMAP F5). `unit` >= 0 says that lam is the unit
+// cotangent on that dof: on a serial chain the links up to its joint's
+// parent then carry no force cotangent, and their share of the sweeps (the
+// totals' reverse, the link forces' reverse) is skipped.
+template <typename T, class P, class S, bool QDD = false>
 __device__ __forceinline__ void drm_rr_rnea_reverse(const Tree<T>& tr, const S& s, const T* qd,
                                                     const T* lam, T* jac, int unit = -1) {
   constexpr int NL = P::NL;
@@ -727,6 +663,7 @@ __device__ __forceinline__ void drm_rr_rnea_reverse(const Tree<T>& tr, const S& 
   for (int d = 0; d < D; ++d) {
     jac[d] = T(0);
     jac[D + d] = tr.use_damping ? tr.damping[d] * lam[d] : T(0);
+    if constexpr (QDD) jac[2 * D + d] = T(0);
   }
   // the backward sweep's reverse, root -> tip: fb, nb the cotangents of the
   // totals f, n
@@ -809,6 +746,12 @@ __device__ __forceinline__ void drm_rr_rnea_reverse(const Tree<T>& tr, const S& 
         dwb[l][i] = dwb[l][i] + (ca[i] + Inb[i]);
         dvb[l][i] = dvb[l][i] + acb[i];
       }
+    }
+    if constexpr (QDD) {
+      if (ty == DRM_REVOLUTE)
+        jac[2 * D + P::dof(tr, l)] = L.a[0] * dwb[l][0] + L.a[1] * dwb[l][1] + L.a[2] * dwb[l][2];
+      else if (ty == DRM_PRISMATIC)
+        jac[2 * D + P::dof(tr, l)] = L.a[0] * dvb[l][0] + L.a[1] * dvb[l][1] + L.a[2] * dvb[l][2];
     }
     T w_c[3], dw_c[3], dv_c[3], wcb[3];
     drm_rr_motion(R, t, wp, dwp, dvp, w_c, dw_c, dv_c);
@@ -1154,8 +1097,8 @@ __device__ __forceinline__ void drm_rr_ee(const Chain<T>& ch, const T* q, Rec re
     drm_chain_sweep(ch, [&](int d) { return q[d]; }, rec, pw);
 }
 
-// The instantiations of K6/K8's backward, K9 and K10, by the code
-// ops/kernels/solver.py `kernel_variant` passes.
+// The instantiations of K6/K8's backward, K9, K10 and `rnea_bwd`, by the
+// code ops/kernels/rollout.py `kernel_variant` passes.
 enum DrmVariant { DRM_GENERIC16 = 0, DRM_GENERIC32 = 1, DRM_SERIAL_9_7 = 2, DRM_SERIAL_4_2 = 3 };
 
 // (links, dofs) of DRM_SERIAL_9_7 and DRM_SERIAL_4_2, for the Python side's check.
@@ -1164,4 +1107,16 @@ inline void drm_variant_shapes(int64_t* out) {
   out[1] = 7;
   out[2] = 4;
   out[3] = 2;
+}
+
+// run(policy) on the instantiation that `variant` names.
+template <typename F>
+int drm_by_variant(int variant, F run) {
+  switch (variant) {
+    case DRM_GENERIC16: return run(DrmGeneric<16>{});
+    case DRM_GENERIC32: return run(DrmGeneric<32>{});
+    case DRM_SERIAL_9_7: return run(DrmSerial<9, 7>{});
+    case DRM_SERIAL_4_2: return run(DrmSerial<4, 2>{});
+  }
+  return int(cudaErrorInvalidValue);
 }

@@ -5,11 +5,10 @@
 // RNEA sweeps of every scenario in one launch, with the flags for gravity
 // (the tree's `gravity`, 0 when it is off) and joint damping (d * qd added to
 // the torques). Its VJP is XLA's reverse mode of the scalar path there
-// (`_scalar_vjp`); rnea_bwd is its counterpart here, written out:
-// q̄ = (∂τ/∂q)ᵀ ḡ and q̄d = (∂τ/∂qd)ᵀ ḡ (damping included) from 2D forward
-// sweeps of the same RNEA code on dual numbers (dyn_step.cuh
-// `drm_rnea_vjp`), and q̄dd = M(q) ḡ from the composite-rigid-body
-// mass matrix, since ∂τ/∂qdd = M(q) is symmetric.
+// (`_scalar_vjp`); rnea_bwd is its counterpart here, written out: the RNEA
+// (`drm_rr_rnea`) and one reverse sweep of it with lam = ḡ
+// (`drm_rr_rnea_reverse` with QDD), which gives q̄ = (∂τ/∂q)ᵀ ḡ and
+// q̄d = (∂τ/∂qd)ᵀ ḡ (damping included) and q̄dd = M(q) ḡ at once.
 //
 // Layout as at the model API, batch-major: q, qd, qdd, g, tau and the
 // cotangents are [B, D], one thread per scenario reading its own row. The
@@ -20,16 +19,21 @@
 // Bound on the H100: per scenario rnea_fwd moves 16 D bytes (float32) and
 // needs about a thousand FP32 operations for iiwa once the robot's
 // constants are folded, so the bytes and the operations bound it about
-// equally (chip_smoke.py counts both); rnea_bwd needs a reverse RNEA sweep
-// more, so operations bound it. With one thread per scenario, each thread's
-// dependent chain through the link sweeps, its per-link state in local
-// memory, sets the time; at B=65536 there are 16 warps per SM to hide it.
+// equally (chip_smoke.py counts both); rnea_bwd needs the reverse sweep
+// more, so operations bound it. rnea_fwd runs the generic sweeps of
+// dyn_step.cuh's first part, its per-link state in local memory; rnea_bwd
+// runs on the topology policy `kernel_variant` picks (ops/kernels/rollout.py),
+// so that on a serial chain of a built shape (iiwa, the 2-link robot) its
+// loops unroll and its per-link state stays in registers. At B=65536 there
+// are 16 warps per SM.
 
 #include <cstdint>
 
 #include "dyn_step.cuh"
 
 namespace {
+
+constexpr int kThreads = 128;
 
 template <typename T>
 __device__ __forceinline__ void load_row(const T* __restrict__ x, int64_t row, int D, T* out) {
@@ -54,40 +58,37 @@ __global__ void rnea_fwd_kernel(const __grid_constant__ Tree<T> tr, const T* __r
   for (int d = 0; d < D; ++d) tau[row + d] = tv[d];
 }
 
-template <typename T, int NL, int ND>
-__global__ void rnea_bwd_kernel(const __grid_constant__ Tree<T> tr, const T* __restrict__ q,
-                                const T* __restrict__ qd, const T* __restrict__ qdd,
-                                const T* __restrict__ g, T* __restrict__ gq, T* __restrict__ gqd,
-                                T* __restrict__ gqdd, int64_t B) {
+template <typename T, class P>
+__global__ void __launch_bounds__(kThreads)
+rnea_bwd_kernel(const __grid_constant__ Tree<T> tr, const T* __restrict__ q,
+                const T* __restrict__ qd, const T* __restrict__ qdd, const T* __restrict__ g,
+                T* __restrict__ gq, T* __restrict__ gqd, T* __restrict__ gqdd, int64_t B) {
   const int64_t b = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const int D = tr.D;
+  constexpr int ND = P::ND;
+  const int D = P::dofs(tr);
   const int64_t row = b * D;
   T qv[ND], qdv[ND], qddv[ND], gv[ND];
-  load_row(q, row, D, qv);
-  load_row(qd, row, D, qdv);
-  load_row(qdd, row, D, qddv);
-  load_row(g, row, D, gv);
-  {
-    // q̄dd = M(q) ḡ on the packed lower triangle.
-    T Rl[NL][9], tl[NL][3], Hm[ND * (ND + 1) / 2];
-    drm_local_all<T, T, NL>(tr, qv, Rl, tl);
-    drm_crb<T, NL, ND>(tr, Rl, tl, Hm);
-    for (int i = 0; i < D; ++i) {
-      T s = T(0);
-      for (int j = 0; j < D; ++j) s = s + Hm[i >= j ? drm_tri(i, j) : drm_tri(j, i)] * gv[j];
-      gqdd[row + i] = s;
-    }
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    qv[d] = q[row + d];
+    qdv[d] = qd[row + d];
+    qddv[d] = qdd[row + d];
+    gv[d] = g[row + d];
   }
-  T jac[2 * ND];
-  drm_rnea_vjp<T, NL, ND>(tr, qv, qdv, qddv, gv, jac);
+  DrmLocalRnea<T, P> s;
+  T tau[ND];
+  drm_rr_local<T, P>(tr, qv, s.R, s.t);
+  drm_rr_rnea<T, P>(tr, s.R, s.t, qdv, qddv, s.st, tau);
+  T jac[3 * ND];
+  drm_rr_rnea_reverse<T, P, DrmLocalRnea<T, P>, true>(tr, s, qdv, gv, jac);
+#pragma unroll
   for (int d = 0; d < D; ++d) {
     gq[row + d] = jac[d];
     gqd[row + d] = jac[D + d];
+    gqdd[row + d] = jac[2 * D + d];
   }
 }
-
-constexpr int kThreads = 128;
 
 inline unsigned blocks_for(int64_t B) { return unsigned((B + kThreads - 1) / kThreads); }
 
@@ -106,28 +107,28 @@ int launch_fwd(const Tree<T>* tr, const T* q, const T* qd, const T* qdd, T* tau,
 }
 
 template <typename T>
-int launch_bwd(const Tree<T>* tr, const T* q, const T* qd, const T* qdd, const T* g, T* gq,
-               T* gqd, T* gqdd, int64_t B, void* stream) {
+int launch_bwd(int variant, const Tree<T>* tr, const T* q, const T* qd, const T* qdd, const T* g,
+               T* gq, T* gqd, T* gqdd, int64_t B, void* stream) {
   auto s = (cudaStream_t)stream;
-  if (small_tree(tr))
-    rnea_bwd_kernel<T, 16, 16><<<blocks_for(B), kThreads, 0, s>>>(*tr, q, qd, qdd, g, gq, gqd,
-                                                                  gqdd, B);
-  else
-    rnea_bwd_kernel<T, 32, 32><<<blocks_for(B), kThreads, 0, s>>>(*tr, q, qd, qdd, g, gq, gqd,
-                                                                  gqdd, B);
-  return int(cudaGetLastError());
+  return drm_by_variant(variant, [&](auto p) {
+    rnea_bwd_kernel<T, decltype(p)><<<blocks_for(B), kThreads, 0, s>>>(*tr, q, qd, qdd, g, gq,
+                                                                        gqd, gqdd, B);
+    return int(cudaGetLastError());
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// sizeof(Tree<float>), sizeof(Tree<double>), DRM_MAX_LINKS: the Python side
-// checks its ctypes mirror against these.
+// sizeof(Tree<float>), sizeof(Tree<double>), DRM_MAX_LINKS and the (links,
+// dofs) of each serial instantiation: the Python side checks its ctypes
+// mirror and its variant table against these.
 void rnea_layout(int64_t* out) {
   out[0] = sizeof(Tree<float>);
   out[1] = sizeof(Tree<double>);
   out[2] = DRM_MAX_LINKS;
+  drm_variant_shapes(out + 3);
 }
 
 int rnea_fwd_f32(const Tree<float>* tr, const float* q, const float* qd, const float* qdd,
@@ -140,15 +141,17 @@ int rnea_fwd_f64(const Tree<double>* tr, const double* q, const double* qd, cons
   return launch_fwd(tr, q, qd, qdd, tau, B, stream);
 }
 
-int rnea_bwd_f32(const Tree<float>* tr, const float* q, const float* qd, const float* qdd,
-                 const float* g, float* gq, float* gqd, float* gqdd, int64_t B, void* stream) {
-  return launch_bwd(tr, q, qd, qdd, g, gq, gqd, gqdd, B, stream);
+// `variant`: the instantiation ops/kernels/rollout.py `kernel_variant` names.
+int rnea_bwd_f32(int variant, const Tree<float>* tr, const float* q, const float* qd,
+                 const float* qdd, const float* g, float* gq, float* gqd, float* gqdd, int64_t B,
+                 void* stream) {
+  return launch_bwd(variant, tr, q, qd, qdd, g, gq, gqd, gqdd, B, stream);
 }
 
-int rnea_bwd_f64(const Tree<double>* tr, const double* q, const double* qd, const double* qdd,
-                 const double* g, double* gq, double* gqd, double* gqdd, int64_t B,
-                 void* stream) {
-  return launch_bwd(tr, q, qd, qdd, g, gq, gqd, gqdd, B, stream);
+int rnea_bwd_f64(int variant, const Tree<double>* tr, const double* q, const double* qd,
+                 const double* qdd, const double* g, double* gq, double* gqd, double* gqdd,
+                 int64_t B, void* stream) {
+  return launch_bwd(variant, tr, q, qd, qdd, g, gq, gqd, gqdd, B, stream);
 }
 
 }  // extern "C"

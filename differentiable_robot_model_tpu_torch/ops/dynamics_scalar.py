@@ -299,10 +299,15 @@ def rnea_vjp_scalar(
     include_gravity: bool = True,
     use_damping: bool = True,
     gravity: float = GRAVITY,
+    with_qdd: bool = False,
 ) -> torch.Tensor:
     """(∂RNEA(q, qd, qdd)/∂q)ᵀ λ and (∂RNEA/∂qd)ᵀ λ as one [2D, B...] tensor
     (rows k < D the q partials, D + k the qd ones) for dof-major q, qd, qdd,
-    λ [D, B...], with gravity and damping as `rnea_scalar` has them.
+    λ [D, B...], with gravity and damping as `rnea_scalar` has them. With
+    `with_qdd`, [3D, B...]: rows 2D + k the qdd partials (∂RNEA/∂qdd)ᵀ λ =
+    M(q) λ, each joint's axis dotted with the cotangent that the sweep's
+    reverse carries for its link's angular (revolute) or linear (prismatic)
+    acceleration, which is where its qdd enters.
 
     One reverse sweep of the RNEA: its forward sweep (each link's motion and
     own force) and backward sweep (the totals) once, then their reverse,
@@ -312,7 +317,8 @@ def rnea_vjp_scalar(
     y = Rᵀ x with cotangent ȳ adds a·(ȳ × y) to q̄ and z = R x adds
     a·(x × Rᵀ z̄); a prismatic joint's offset t = t0 + (F a) q adds
     (F a)·t̄. The plain version of csrc/dyn_step.cuh `drm_rr_rnea_vjp` (the
-    sweeps, then `drm_rr_rnea_reverse`), which follows it line for line."""
+    sweeps, then `drm_rr_rnea_reverse`, with QDD for `with_qdd`), which
+    follows it line for line."""
     L, D = robot.n_links, robot.n_dofs
     zero = torch.zeros(q.shape[1:], dtype=q.dtype, device=q.device)
     ld = _link_dof_map(robot)
@@ -340,7 +346,7 @@ def rnea_vjp_scalar(
         f[par] = _add(f[par], f_p)
         n[par] = _add(n[par], _add(_rot(Rl[l], n[l]), _cross(tl[l], f_p)))
 
-    gq = [zero] * D
+    gq, gqdd = [zero] * D, [zero] * D
     gqd = [robot.damping[d] * lam[d] if use_damping else zero for d in range(D)]
     fb, nb, wb, dwb, dvb, tb = ([z3] * L for _ in range(6))
     for l in range(1, L):  # the backward sweep's reverse, root -> tip: fb, nb of the totals
@@ -363,6 +369,8 @@ def rnea_vjp_scalar(
         R, t = Rl[l], tl[l]
         seeds = _link_force_vjp(robot, l, w[l], dw[l], fb[l], nb[l])
         wb[l], dwb[l], dvb[l] = (_add(x, y) for x, y in zip((wb[l], dwb[l], dvb[l]), seeds))
+        if jt != JOINT_FIXED:  # qdd enters dw (revolute) or dv (prismatic) along a
+            gqdd[ld[l]] = _dot(a, dwb[l] if jt == JOINT_REVOLUTE else dvb[l])
         w_c, dw_c, dv_c = _motion(R, t, w[par], dw[par], dv[par])
         wcb, dwcb, dvcb = wb[l], dwb[l], dvb[l]
         if jt != JOINT_FIXED:
@@ -389,7 +397,7 @@ def rnea_vjp_scalar(
             gq[d] = gq[d] + _dot(_rot(R, _vec3(robot.axis, l)), tbl)
     if D == 0:
         return torch.zeros((0,) + tuple(q.shape[1:]), dtype=q.dtype, device=q.device)
-    return torch.stack(gq + gqd)
+    return torch.stack(gq + gqd + (gqdd if with_qdd else []))
 
 
 def _rot_symm_rot_t(R, I6):

@@ -84,6 +84,28 @@ def chain_constants(robot: RobotStruct, link_idx: int) -> ChainConsts:
     return robot.memo(("chain", link_idx), lambda: _chain_constants(robot, link_idx))
 
 
+UNIT_AXIS_TOL = 1e-6
+
+
+def check_unit_axes(robot: RobotStruct, links, what: str) -> None:
+    """Raise unless every revolute joint among `links` has a unit axis
+    (within UNIT_AXIS_TOL). `what`'s hand-written adjoint uses identities
+    that hold only for unit axes (a rotation about a, Rᵀ dR/dq = [a]×; the
+    geometric Jacobian z × (p - o)); URDF ingest normalises the axes, but
+    `struct_from_arrays` takes them as given (ROADMAP W6). Checked once per
+    struct and links."""
+    links = tuple(links)
+    revolute = [l for l in links if robot.joint_types[l] == JOINT_REVOLUTE]
+    norms = robot.memo(("axis_norms", links), lambda: np.linalg.norm(
+        robot.numpy()["axis"][revolute].astype(np.float64), axis=-1))
+    for l, norm in zip(revolute, norms):
+        if abs(norm - 1.0) > UNIT_AXIS_TOL:
+            raise ValueError(
+                f"{what} needs unit joint axes: link {l} ({robot.link_names[l]}) has a "
+                f"revolute axis of length {float(norm)!r}"
+            )
+
+
 def fixed_rotation(rpy, rnd) -> np.ndarray:
     """The joint origin's rpy rotation Rz(yaw) Ry(pitch) Rx(roll) from
     cos/sin each rounded by `rnd`, as the TPU kernels fold it."""

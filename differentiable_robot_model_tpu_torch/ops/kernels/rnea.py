@@ -4,9 +4,10 @@
 Replaces the JAX package's ops/pallas/rnea.py `_kernel` (both RNEA sweeps of
 a scenario batch in one launch, with the gravity and damping flags). JAX
 takes its VJP from XLA (reverse mode of the scalar path, `_scalar_vjp`);
-here it is a kernel too: q̄ = (∂τ/∂q)ᵀ ḡ and q̄d = (∂τ/∂qd)ᵀ ḡ from 2D dual
-sweeps of the RNEA, as the rollout adjoints take them, and q̄dd = M(q) ḡ
-from the composite-rigid-body mass matrix.
+here it is a kernel too: the RNEA and one reverse sweep of it give q̄ =
+(∂τ/∂q)ᵀ ḡ, q̄d = (∂τ/∂qd)ᵀ ḡ and q̄dd = M(q) ḡ at once, on the
+instantiation `kernel_variant` picks (a serial chain of a built shape in
+registers, else the generic 16- or 32-link build).
 
 Layout: batch-major [B, D] for every operand, as the model API holds them;
 the kernels read each scenario's row in place (csrc/rnea.cu says why no
@@ -16,7 +17,9 @@ bytes and the operations bound it about equally; rnea_bwd needs a reverse
 sweep more and is bound by operations. One thread per scenario.
 
 On a CUDA tensor the wrappers launch the kernel or raise; they take the
-plain version only for tensors on the CPU.
+plain version only for tensors on the CPU. `rnea_bwd` raises for a revolute
+joint whose axis is not of unit length: the reverse sweep assumes unit axes
+(ROADMAP W6).
 """
 
 from __future__ import annotations
@@ -26,16 +29,19 @@ import ctypes
 import torch
 
 from ...models.structs import RobotStruct
-from ..dynamics_scalar import GRAVITY, mass_matrix_scalar, rnea_scalar
+from ..dynamics_scalar import GRAVITY, rnea_scalar, rnea_vjp_scalar
 from . import build
-from .fk import _check_cuda, _suffix
+from .fk import _check_cuda, _suffix, check_unit_axes
 from .rollout import (
     MAX_LINKS,
+    SERIAL_SHAPES,
     TREE_CTYPES,
+    VARIANTS,
     StepFlags,
+    _check_variants,
     check_constant_robot,
     check_same,
-    rnea_jacobians,
+    kernel_variant,
     tree_struct,
 )
 
@@ -69,16 +75,13 @@ def rnea_fwd_reference(robot: RobotStruct, q, qd, qdd, use_damping=True, include
 def rnea_bwd_reference(robot: RobotStruct, q, qd, qdd, g, use_damping=True, include_gravity=True,
                        gravity=GRAVITY):
     """Plain version of `rnea_bwd`: (q̄, q̄d, q̄dd) [B, D] each for the
-    cotangent g [B, D] on τ, from the RNEA partials by forward tangents
-    (`rnea_jacobians`) and the mass matrix (`mass_matrix_scalar`)."""
-    _, D = _check_rnea(robot, (("q", q), ("qd", qd), ("qdd", qdd), ("g", g)))
-    qT, gT = q.T, g.T
-    rows = rnea_jacobians(robot, qT, qd.T, qdd.T, use_damping, include_gravity, gravity)
-    jac = 0.0
-    for d in range(D):
-        jac = jac + gT[d] * rows[d]  # [2D, B]
-    gqdd = torch.einsum("ijb,jb->ib", mass_matrix_scalar(robot, qT), gT)
-    return jac[:D].T, jac[D:].T, gqdd.T
+    cotangent g [B, D] on τ, the three blocks of one reverse sweep
+    (`rnea_vjp_scalar` with `with_qdd`), the arithmetic the kernel runs."""
+    _check_rnea(robot, (("q", q), ("qd", qd), ("qdd", qdd), ("g", g)))
+    D = robot.n_dofs
+    jac = rnea_vjp_scalar(robot, q.T, qd.T, qdd.T, g.T, include_gravity, use_damping, gravity,
+                          with_qdd=True)
+    return jac[:D].T, jac[D:2 * D].T, jac[2 * D:].T
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +90,7 @@ def rnea_bwd_reference(robot: RobotStruct, q, qd, qdd, g, use_damping=True, incl
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    sizes = (ctypes.c_int64 * 3)()
+    sizes = (ctypes.c_int64 * (3 + 2 * len(SERIAL_SHAPES)))()
     lib.rnea_layout.argtypes = [ctypes.c_void_p]
     lib.rnea_layout.restype = None
     lib.rnea_layout(sizes)
@@ -96,17 +99,18 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.sizeof(TREE_CTYPES[torch.float64]),
         MAX_LINKS,
     )
-    if tuple(sizes) != expect:
-        raise RuntimeError(f"csrc/rnea.cu layout {tuple(sizes)} != Python's {expect}")
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    for name, n in (("rnea_fwd", 5), ("rnea_bwd", 8)):
+    if tuple(sizes[:3]) != expect:
+        raise RuntimeError(f"csrc/rnea.cu layout {tuple(sizes[:3])} != Python's {expect}")
+    _check_variants(sizes, 3, "csrc/rnea.cu")
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for name, lead, n in (("rnea_fwd", [], 5), ("rnea_bwd", [i], 8)):
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{sfx}")
-            fn.argtypes = [p] * n + [i64, p]
+            fn.argtypes = lead + [p] * n + [i64, p]
             fn.restype = ctypes.c_int
 
 
-def _launch(name, robot, flags, ins, outs):
+def _launch(name, robot, flags, ins, outs, lead=()):
     for n, x in ins:
         _check_cuda(x, n)
     tree = tree_struct(robot, flags)
@@ -118,8 +122,8 @@ def _launch(name, robot, flags, ins, outs):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"{name}_{_suffix(robot.dtype)}")(
-            ctypes.byref(tree), *(x.data_ptr() for _, x in ins), *(y.data_ptr() for y in outs),
-            B, stream,
+            *lead, ctypes.byref(tree), *(x.data_ptr() for _, x in ins),
+            *(y.data_ptr() for y in outs), B, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
@@ -144,13 +148,17 @@ rnea_fwd.launches = 0
 
 def rnea_bwd(robot: RobotStruct, q, qd, qdd, g, use_damping=True, include_gravity=True,
              gravity=GRAVITY):
-    """The VJP of K4 for the cotangent g [B, D] on τ: (q̄, q̄d, q̄dd) [B, D]."""
+    """The VJP of K4 for the cotangent g [B, D] on τ: (q̄, q̄d, q̄dd) [B, D].
+    Raises for a revolute joint whose axis is not of unit length."""
     ins = (("q", q), ("qd", qd), ("qdd", qdd), ("g", g))
     _check_rnea(robot, ins)
+    check_unit_axes(robot, range(1, robot.n_links), "rnea_bwd")
     if q.device.type == "cpu":
         return rnea_bwd_reference(robot, q, qd, qdd, g, use_damping, include_gravity, gravity)
     outs = (torch.empty_like(q), torch.empty_like(q), torch.empty_like(q))
-    if _launch("rnea_bwd", robot, StepFlags(0.0, use_damping, include_gravity, gravity), ins, outs):
+    variant = (VARIANTS.index(kernel_variant(robot)),)
+    if _launch("rnea_bwd", robot, StepFlags(0.0, use_damping, include_gravity, gravity), ins, outs,
+               variant):
         rnea_bwd.launches += 1
     return outs
 

@@ -221,9 +221,7 @@ def _clip_grad(x, lo, hi):
 
 class _Dual:
     """A lane value with K tangents stacked in front of its lanes: the
-    forward-mode number type that `rnea_jacobians` runs the RNEA sweeps on
-    (csrc/dyn_step.cuh `drm_rnea_vjp` carries one tangent per sweep
-    instead)."""
+    forward-mode number type that `rnea_jacobians` runs the RNEA sweeps on."""
 
     __slots__ = ("v", "t")
 

@@ -8,17 +8,17 @@ one at `mppi_solve`.
 K3 replaces the JAX package's ops/pallas/solver.py `_kin_solve_kernel` and
 its wrapper `kinematic_adam_solve_fused`: per scenario, n_iters times,
 the clamp-affine rollout q' = clip(q + a), the ee FK of every stage, the
-cost cgoal_w * sum |p - goal|^2, the adjoint by replay, and the
-optax-style Adam update applied per stage during the adjoint sweep.
+cost cgoal_w * sum |p - goal|^2, the adjoint (J^T gpe of each stage by the
+geometric-Jacobian identity, chained back through the clip), and the
+optax-style Adam update of every stage.
 
 Bound on the H100: the function needs about (H-1) (n_iters+1) chain sweeps
 per scenario (each one sincos and a few dozen FP32 operations per revolute
 link once the robot's zero and unit constants are folded) over only ~12 MB
-of inputs and outputs at iiwa H=50 B=4096, so FP32 throughput would bound
-it; the kernel sweeps twice per stage and iteration, and with one thread
-per scenario, B=4096 fills one warp per SM, so the dependent chain of each
-thread's operations (latency) is what bounds it in practice. The kernel's design note (csrc/kin_solve.cu)
-says what it does about that.
+of inputs and outputs at iiwa H=50 B=4096, so FP32 throughput bounds it.
+The kernel spreads each scenario's stages over a warp (one sweep a stage
+and iteration) and walks only the two elementwise recursions
+in order; csrc/kin_solve.cu gives the design.
 
 On a CUDA tensor the wrapper launches the kernel or raises; it takes the
 plain version only for tensors on the CPU.
@@ -44,6 +44,8 @@ from .fk import (
     chain_constants,
     chain_struct,
     chain_sweep,
+    chain_to,
+    check_unit_axes,
     joint_vjp,
 )
 from .rollout import (
@@ -143,11 +145,13 @@ def kinematic_adam_solve_reference(
     """Plain version of K3: returns (a [H, D, B] optimized action deltas,
     costs [n_iters+1, B]); q0T [D, B] is already clipped.
 
-    The kernel's arithmetic element for element, with its sweeps batched
-    over the stages: the replayed q'_h of the adjoint equal the forward's
-    saved ones (a_h is read before its own update), so every stage's FK and
-    Jacobian product run as one sweep on [H-1, B] lanes, and only the
-    elementwise adjoint recursion and the Adam updates walk the stages.
+    The kernel's four steps an iteration, each batched over the stages: the
+    clamp scan q'_h = clip(q'_{h-1} + a_h) in stage order; one chain sweep
+    of every stage (on [H-1, B] lanes) for p_h, the cost and, from the same
+    sweep's joint axes and origins, J(q'_h)^T gpe_h; the adjoint scan from
+    the last stage, through the clip's factor at q'_{h-1} + a_h; and Adam on
+    every stage. a_h is read before its own update, so the adjoint needs no
+    replay of the forward.
     """
     H, D, B = _validate(robot, q0T, goalT, aT0, n_iters)
     consts = chain_constants(robot, ee_link_idx)
@@ -163,50 +167,78 @@ def kinematic_adam_solve_reference(
         diff = pe0[j] - goalT[j]
         cg0 = cg0 + diff * diff
 
-    def forward():
+    costs = []
+    for t in range(n_iters + 1):
+        # 1. the clamp scan
         q, qs = q0T, []
         for h in range(H - 1):
             q = _clip(q + a[h], lo, hi)
             qs.append(q)
         qs = torch.stack(qs)  # [H-1, D, B]
-        ps = chain_sweep(consts, lambda d: qs[:, d], qs[:, 0])  # 3 x [H-1, B]
+        # 2. one sweep of every stage, keeping each joint's z and o
+        joints = []
+        ps = chain_sweep(consts, lambda d: qs[:, d], qs[:, 0],
+                         lambda jt, dof, z, o: joints.append((jt, dof, z, o)))  # 3 x [H-1, B]
         cg = cg0
         for h in range(H - 1):
             for j in range(3):
                 diff = ps[j][h] - goalT[j]
                 cg = cg + diff * diff
-        return c["cgoal_w"] * cg, qs, ps
-
-    costs = []
-    for t in range(n_iters):
-        cost, qs, ps = forward()
-        costs.append(cost)
-        alpha, ibc2 = float(c["bc"][2 * t]), float(c["bc"][2 * t + 1])
-        # J(q'_h)^T gpe_h for every stage, by the geometric-Jacobian identity.
+        costs.append(c["cgoal_w"] * cg)
+        if t == n_iters:
+            break
         gpe = [c["gpe_w"] * (ps[j] - goalT[j]) for j in range(3)]
         rows = [torch.zeros_like(qs[:, 0]) for _ in range(D)]
-
-        def record(jt, dof, z, o):
+        for jt, dof, z, o in joints:
             rows[dof] = joint_vjp(jt, z, o, ps, gpe)
-
-        chain_sweep(consts, lambda d: qs[:, d], qs[:, 0], record)
         jtg = torch.stack(rows, dim=1)  # [H-1, D, B]
-        # d clip / dx at x_h = q'_{h-1} + a_h, by autograd of max-then-min.
+        # 3. the adjoint scan; d clip / dx at x_h = q'_{h-1} + a_h by
+        # autograd of max-then-min
         with torch.enable_grad():
             x = (torch.cat([q0T[None], qs[:-1]]) + a[: H - 1]).requires_grad_(True)
             (clip_grad,) = torch.autograd.grad(_clip(x, lo, hi), x, torch.ones_like(x))
         gq = torch.zeros_like(q0T)
+        da = torch.empty_like(jtg)
         for h in range(H - 2, -1, -1):
             gq = (gq + jtg[h]) * clip_grad[h]  # da_h, and the cotangent of q'_{h-1}
-            m[h] = c["b1"] * m[h] + c["omb1"] * gq
-            v[h] = c["b2"] * v[h] + c["omb2"] * (gq * gq)
-            a[h] = a[h] - alpha * m[h] / (torch.sqrt(v[h] * ibc2 + c["eps_root"]) + c["eps"])
-    costs.append(forward()[0])
+            da[h] = gq
+        # 4. Adam
+        alpha, ibc2 = float(c["bc"][2 * t]), float(c["bc"][2 * t + 1])
+        S = H - 1
+        m[:S] = c["b1"] * m[:S] + c["omb1"] * da
+        v[:S] = c["b2"] * v[:S] + c["omb2"] * (da * da)
+        a[:S] = a[:S] - alpha * m[:S] / (torch.sqrt(v[:S] * ibc2 + c["eps_root"]) + c["eps"])
     return a, torch.stack(costs)
 
 
+# K3's launch shape: threads a block at most (one warp a scenario), and the
+# most dynamic shared memory a block of the H100 may take (227 KB); past it
+# a scenario's rows go to a global scratch (lowering KIN_SHARED_CAP_BYTES
+# forces that path).
+KIN_THREADS = 128
+KIN_SHARED_CAP_BYTES = 232448
+
+
+def kin_scenario_floats(S: int, D: int) -> int:
+    """The floats K3 keeps per scenario with S action stages and D dofs:
+    a, m, v, q' and the rows J^T gpe (then da), each [S, D | 1], and the
+    cost's differences [S, 3] (csrc/kin_solve.cu `scenario_floats`)."""
+    return S * (5 * (D | 1) + 3)
+
+
+def kin_launch_shape(H: int, D: int):
+    """(scenarios a block, rows in shared memory) of a K3 launch:
+    KIN_THREADS // 32 scenarios, halved while their rows exceed
+    KIN_SHARED_CAP_BYTES; past one scenario the rows go to global scratch."""
+    per = 4 * kin_scenario_floats(H - 1, D)
+    n = KIN_THREADS // 32
+    while n > 1 and n * per > KIN_SHARED_CAP_BYTES:
+        n //= 2
+    return n, n * per <= KIN_SHARED_CAP_BYTES
+
+
 def _configure(lib: ctypes.CDLL) -> None:
-    sizes = (ctypes.c_int64 * 4)()
+    sizes = (ctypes.c_int64 * 6)()
     lib.kin_solve_layout.argtypes = [ctypes.c_void_p]
     lib.kin_solve_layout.restype = None
     lib.kin_solve_layout(sizes)
@@ -215,12 +247,31 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.sizeof(_KinSolveParams),
         MAX_CHAIN,
         MAX_DOF,
+        kin_scenario_floats(49, 7),
+        KIN_THREADS,
     )
     if tuple(sizes) != expect:
         raise RuntimeError(f"csrc/kin_solve.cu layout {tuple(sizes)} != Python's {expect}")
     p = ctypes.c_void_p
-    lib.kin_solve_f32.argtypes = [p] * 12 + [ctypes.c_int64, p]
+    lib.kin_solve_f32.argtypes = [p] * 9 + [ctypes.c_int, ctypes.c_int64, p]
     lib.kin_solve_f32.restype = ctypes.c_int
+
+
+def _kin_constants(robot, H, n_iters, lr, goal_weight, eps, eps_root, dev):
+    """K3's by-value parameters and its bias-correction table on `dev`,
+    built once per robot, device and solve setting (the host's share of a
+    launch)."""
+    D = robot.n_dofs
+    c = solve_constants(robot.dtype, H, n_iters, lr, goal_weight, eps, eps_root)
+    host = robot.numpy()
+    params = _KinSolveParams(
+        H=H, n_iters=n_iters, cgoal_w=c["cgoal_w"], gpe_w=c["gpe_w"],
+        b1=c["b1"], b2=c["b2"], omb1=c["omb1"], omb2=c["omb2"],
+        eps=c["eps"], eps_root=c["eps_root"],
+    )
+    params.lo[:D] = host["limit_lower"].tolist()
+    params.hi[:D] = host["limit_upper"].tolist()
+    return params, torch.from_numpy(c["bc"]).to(dev)
 
 
 def kinematic_adam_solve(
@@ -239,11 +290,13 @@ def kinematic_adam_solve(
     clipped; goalT [3, B]; aT0 [H, D, B] initial action deltas. Returns
     (a [H, D, B], costs [n_iters+1, B]): costs[t] is the cost before update
     t and costs[n_iters] the final one. Raises for H < 2, n_iters < 1, a
-    robot without dofs, or (on CUDA) input that is not float32."""
+    robot without dofs, a revolute joint on the chain whose axis is not of
+    unit length, or (on CUDA) input that is not float32."""
     H, D, B = _validate(robot, q0T, goalT, aT0, n_iters)
     for f in ("limit_lower", "limit_upper"):
         if getattr(robot, f).requires_grad:
             raise ValueError(f"robot.{f} requires grad: use fk_impl='scalar'")
+    check_unit_axes(robot, chain_to(robot, ee_link_idx), "kin_solve")
     if q0T.device.type == "cpu":
         return kinematic_adam_solve_reference(
             robot, q0T, goalT, aT0, ee_link_idx, n_iters, lr, goal_weight, eps, eps_root
@@ -256,32 +309,27 @@ def kinematic_adam_solve(
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     ch = chain_struct(robot, ee_link_idx)
-    c = solve_constants(robot.dtype, H, n_iters, lr, goal_weight, eps, eps_root)
-    host = robot.numpy()
-    params = _KinSolveParams(
-        H=H, n_iters=n_iters, cgoal_w=c["cgoal_w"], gpe_w=c["gpe_w"],
-        b1=c["b1"], b2=c["b2"], omb1=c["omb1"], omb2=c["omb2"],
-        eps=c["eps"], eps_root=c["eps_root"],
-    )
-    params.lo[:D] = host["limit_lower"].tolist()
-    params.hi[:D] = host["limit_upper"].tolist()
-
     dev = q0T.device
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    a, m, v, qs = (empty(H, D, B) for _ in range(4))
-    ps = empty(H, 3, B)
-    costs = empty(n_iters + 1, B)
+    key = ("kin_solve", H, n_iters, float(lr), float(goal_weight), float(eps), float(eps_root), dev)
+    params, bc = robot.memo(key, lambda: _kin_constants(robot, H, n_iters, lr, goal_weight, eps,
+                                                        eps_root, dev))
+    a = torch.empty((H, D, B), dtype=torch.float32, device=dev)
+    costs = torch.empty((n_iters + 1, B), dtype=torch.float32, device=dev)
     if B == 0:
         return a, costs
-    bc = torch.from_numpy(c["bc"]).to(dev)
     lib = build.load("kin_solve", _configure)
+    per_block, shared = kin_launch_shape(H, D)
+    work = None
+    if not shared:
+        groups = -(-B // per_block) * per_block
+        work = torch.empty((groups, kin_scenario_floats(H - 1, D)), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.kin_solve_f32(
             ctypes.byref(ch), ctypes.byref(params),
             q0T.data_ptr(), goalT.data_ptr(), aT0.data_ptr(), bc.data_ptr(),
-            a.data_ptr(), costs.data_ptr(), m.data_ptr(), v.data_ptr(),
-            qs.data_ptr(), ps.data_ptr(), B, stream,
+            a.data_ptr(), costs.data_ptr(), None if work is None else work.data_ptr(),
+            per_block, B, stream,
         )
     if rc != 0:
         raise RuntimeError(f"kin_solve: CUDA error {rc} at launch")

@@ -1,14 +1,16 @@
-"""Time K9 `dyn_solve`, K10 `mppi_solve`, K6 `dyn_rollout_bwd` and K8
-`dyn_rollout_ee_bwd` of one or two checkouts of the port on one CUDA card,
-beside K5 and K7.
+"""Time K3 `kin_solve`, K9 `dyn_solve`, K10 `mppi_solve`, K6
+`dyn_rollout_bwd`, K8 `dyn_rollout_ee_bwd` and `rnea_bwd` of one or two
+checkouts of the port on one CUDA card, beside K5 and K7.
 
     python3 tools/time_solves.py [--check] [--detail]   # this checkout
     python3 tools/time_solves.py --ab DIR [--check]     # and the checkout at DIR
 
 Each measurement runs in a process of its own that imports the package of
 one checkout and builds that checkout's kernels there (nvcc, into its
-`build/kernels/`): K9 at iiwa B=4096, H=50, 10 iterations (the dynamic MPC
-main path's shape), K10 at iiwa B=256, K=128, H=50, 10 iterations (the MPPI
+`build/kernels/`): K3 at iiwa B=4096, H=50, 10 iterations, lr 0.05, eps
+1.0, warm-started (the kinematic MPC main path's shape), `rnea_bwd` at iiwa
+B=65536 float32 (the model API's), K9 at iiwa B=4096, H=50, 10 iterations
+(the dynamic MPC main path's shape), K10 at iiwa B=256, K=128, H=50, 10 iterations (the MPPI
 main path's), K5 `dyn_rollout_fwd` and K7 `dyn_rollout_ee_fwd` at iiwa
 B=4096, H=50, K6 (a cotangent on qs) and K8 (one on the ee trajectory) at
 the same shape, and, where the checkout has them, K6's and K8's two phases
@@ -19,15 +21,18 @@ one call to the next). Each prints ptxas's report for K9's, K10's and
 K6/K8's kernels (registers, stack frame, spills) and one JSON line. With
 `--ab DIR` the checkouts run in turns: DIR's, this one's, this one's,
 DIR's, then a summary line of the medians. With `--check`, this
-checkout's K9, K10, K6 and K8 are first held to their plain versions at
-small shapes (K9: B=64, H=10, 5 iterations, the effort box off and on;
-K10: B=16, K=64, H=10, 3 iterations, float64; K6 and K8: B=64, H=10,
-float64, every cotangent at once), and the run fails if they disagree (K9
-torques within 5e-3, K10, K6 and K8 within 1e-9 of the largest entry). With `--detail`, this checkout's K9 is also timed on iiwa with
-the generic 16-link build in place of the serial one and on the 2-link
-robot, K10 alone at B=1 (one block: its dependent chain), and the SASS
-instructions of each K9, K10 and K6/K8-phase instantiation are counted
-(`cuobjdump`).
+checkout's K3, K9, K10, K6, K8 and `rnea_bwd` are first held to their
+plain versions at small shapes (K3: B=64, H=10, 3 iterations, float32; K9:
+B=64, H=10, 5 iterations, the effort box off and on; K10: B=16, K=64,
+H=10, 3 iterations, float64; K6 and K8: B=64, H=10, float64, every
+cotangent at once; `rnea_bwd`: B=256, float64), and the run fails if they
+disagree (K3 actions within 2e-3 and costs within 1e-3 relative, K9
+torques within 5e-3, K10, K6, K8 and `rnea_bwd` within 1e-9 of the largest
+entry). With `--detail`, this checkout's K3 is also timed alone at B=1
+(one warp: its scans' and its stage pass's dependent chains), K9 on iiwa with the generic 16-link build
+in place of the serial one and on the 2-link robot, K10 alone at B=1 (one
+block: its dependent chain), and the SASS instructions of each K3, K9,
+K10, K6/K8-phase and `rnea_bwd` instantiation are counted (`cuobjdump`).
 
 A second checkout of a parent commit can be made with `git archive`
 (`mkdir -p build/parent && git archive HEAD~1 differentiable_robot_model_tpu_torch
@@ -46,8 +51,9 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-B, H, ITERS, MPPI_B, MPPI_K = 4096, 50, 10, 256, 128
+B, H, ITERS, MPPI_B, MPPI_K, API_B = 4096, 50, 10, 256, 128, 65536
 DT, LR, EPS, GOAL_W, EFFORT_W = 0.02, 0.5, 0.1, 10.0, 1e-4
+KIN_LR, KIN_GOAL_W, KIN_EPS = 0.05, 100.0, 1.0  # MPCConfig's lr, the kinematic solve's goal weight, eps
 REPS = 20
 DEVICE = "cuda"
 
@@ -81,14 +87,15 @@ def _ptxas(report, kernel):
 
 
 def measure(root: Path, check: bool, detail: bool = False) -> dict:
-    """The times of one checkout's K9, K10, K5 and K7 (this process imports
-    the package under `root`)."""
+    """The times of one checkout's K3, rnea_bwd, K9, K10, K6, K8, K5 and K7
+    (this process imports the package under `root`)."""
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
 
     import differentiable_robot_model_tpu_torch as drt
     from differentiable_robot_model_tpu_torch.ops.kernels import build
+    from differentiable_robot_model_tpu_torch.ops.kernels import rnea as kn
     from differentiable_robot_model_tpu_torch.ops.kernels import rollout as kr
     from differentiable_robot_model_tpu_torch.ops.kernels import solver as ks
     from differentiable_robot_model_tpu_torch.ops.kinematics import fk_link_position
@@ -97,7 +104,7 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
     if pkg.parent != root.resolve():
         raise RuntimeError(f"imported {pkg}, not the package under {root}")
     dev = torch.device(DEVICE, 0)
-    secs = build.build(("dyn_rollout", "dyn_solve", "mppi_solve"))
+    secs = build.build(("kin_solve", "rnea", "dyn_rollout", "dyn_solve", "mppi_solve"))
     model = drt.DifferentiableKUKAiiwa(device=dev)
     s = model.struct
     ee = s.link_index("iiwa_link_ee")
@@ -118,11 +125,32 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
     mkw = lambda K, its: dict(n_iters=its, n_samples=K, dt=DT, temperature=0.01, noise_sigma=5.0,
                               goal_weight=GOAL_W, effort_weight=EFFORT_W)
     out = {"root": str(root), "card": torch.cuda.get_device_name(0), "build_s": secs,
-           "ptxas": _ptxas(build.compiler_report("dyn_solve"), "dyn_solve_")
+           "ptxas": _ptxas(build.compiler_report("kin_solve"), "kin_solve_kernel")
+           + _ptxas(build.compiler_report("rnea"), "rnea_bwd_kernel")
+           + _ptxas(build.compiler_report("dyn_solve"), "dyn_solve_")
            + _ptxas(build.compiler_report("mppi_solve"), "mppi_kernel")
            + [line for kernel in ("bwd_kernel", "replay_kernel", "adjoint_kernel")
               for line in _ptxas(build.compiler_report("dyn_rollout"), kernel)]}
+    kkw = dict(lr=KIN_LR, goal_weight=KIN_GOAL_W, eps=KIN_EPS)
     if check:
+        q0T, _, goalT = problem(64, 0.3)
+        a0 = 0.01 * torch.randn((10, D, 64), generator=torch.Generator(device=dev).manual_seed(3),
+                                device=dev)
+        ak, ck = ks.kinematic_adam_solve(s, q0T, goalT, a0, ee, n_iters=3, **kkw)
+        ar, cr = ks.kinematic_adam_solve_reference(s, q0T, goalT, a0, ee, n_iters=3, **kkw)
+        e, ec = (ak - ar).abs().max().item(), ((ck - cr).abs() / cr.abs()).max().item()
+        out["check_k3"], out["check_k3_cost_rel"] = e, ec
+        if not (e <= 2e-3 and ec <= 1e-3):
+            raise AssertionError(f"K3 disagrees with its plain version: {e}, {ec}")
+        s64 = s.to(dtype=torch.float64)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        x = [torch.rand((256, D), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+             for _ in range(4)]
+        e = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(kn.rnea_bwd(s64, *x), kn.rnea_bwd_reference(s64, *x)))
+        out["check_rnea_bwd_f64"] = e
+        if not e <= 1e-9:
+            raise AssertionError(f"float64 rnea_bwd disagrees with its plain version: {e}")
         q0T, qd0T, goalT = problem(64, 0.3)
         tr, H0, a0 = ks.dyn_prologue(s, q0T, None, 10)
         for effort in (False, True):
@@ -160,6 +188,19 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
             out[f"check_{tag}_f64"] = e
             if not e <= 1e-9:
                 raise AssertionError(f"float64 {tag.upper()} disagrees with its plain version: {e}")
+    # K3 warm-started as the kinematic replan runs it, and rnea_bwd
+    q0T, _, goalT = problem(B, 0.3)
+    a, _ = ks.kinematic_adam_solve(s, q0T, goalT, torch.zeros((H, D, B), device=dev), ee,
+                                   n_iters=ITERS, **kkw)
+    a_warm = torch.cat([a[1:], torch.zeros_like(a[:1])]).contiguous()
+    kin = lambda q, g, a0: ks.kinematic_adam_solve(s, q, g, a0, ee, n_iters=ITERS, **kkw)
+    out["kin_solve_ms"] = _sync_ms(torch, lambda: kin(q0T, goalT, a_warm))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = [torch.rand((API_B, D), generator=gen, device=dev) * 2 - 1 for _ in range(4)]
+    out["rnea_bwd_ms"] = _sync_ms(torch, lambda: kn.rnea_bwd(s, *x))
+    if detail:
+        one = [t[..., :1].contiguous() for t in (q0T, goalT, a_warm)]
+        out["kin_solve_b1_ms"] = _sync_ms(torch, lambda: kin(*one))
     q0T, qd0T, goalT = problem(B, 0.3)
     tr, H0, a0 = ks.dyn_prologue(s, q0T, None, H)
     tau = (tr[None] + torch.randn((H, D, B), generator=torch.Generator(device=dev).manual_seed(4),
@@ -214,11 +255,13 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
 
 
 def _sass_counts(build):
-    """The SASS instruction count of each K9, K10 and K6/K8-phase
-    instantiation (`cuobjdump -sass`), where the toolkit has cuobjdump."""
+    """The SASS instruction count of each K3, rnea_bwd, K9, K10 and
+    K6/K8-phase instantiation (`cuobjdump -sass`), where the toolkit has
+    cuobjdump."""
     exe = Path(build.nvcc()).with_name("cuobjdump")
     counts = {}
-    for name, kernel in (("dyn_solve", "dyn_solve_"), ("mppi_solve", "mppi_kernel"),
+    for name, kernel in (("kin_solve", "kin_solve_kernel"), ("rnea", "rnea_bwd_kernel"),
+                         ("dyn_solve", "dyn_solve_"), ("mppi_solve", "mppi_kernel"),
                          ("dyn_rollout", "replay_kernel"), ("dyn_rollout", "adjoint_kernel")):
         if not exe.exists():
             break
@@ -239,11 +282,12 @@ def _sass_counts(build):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", type=Path, help="a second checkout, timed in turns with this one")
-    ap.add_argument("--check", action="store_true", help="first hold this checkout's K9 and K10 "
-                    "to their plain versions at small shapes")
-    ap.add_argument("--detail", action="store_true", help="also time this checkout's K9 on "
-                    "iiwa's generic build and on the 2-link robot, K10 at B=1, and count the "
-                    "SASS instructions of each K9, K10 and K6/K8-phase instantiation")
+    ap.add_argument("--check", action="store_true", help="first hold this checkout's K3, K9, "
+                    "K10, K6, K8 and rnea_bwd to their plain versions at small shapes")
+    ap.add_argument("--detail", action="store_true", help="also time this checkout's K3 "
+                    "at B=1, K9 on iiwa's generic build and on "
+                    "the 2-link robot, K10 at B=1, and count the SASS instructions of each K3, "
+                    "rnea_bwd, K9, K10 and K6/K8-phase instantiation")
     ap.add_argument("--root", type=Path, help=argparse.SUPPRESS)  # one measurement, in this process
     a = ap.parse_args()
     if a.root is not None:
@@ -267,7 +311,7 @@ def main() -> int:
             sys.stderr.write(p.stderr)
             return p.returncode
         runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
-    keys = ("dyn_solve_ms", "mppi_solve_ms", "dyn_rollout_fwd_ms", "dyn_rollout_ee_fwd_ms",
+    keys = ("kin_solve_ms", "rnea_bwd_ms", "dyn_solve_ms", "mppi_solve_ms", "dyn_rollout_fwd_ms", "dyn_rollout_ee_fwd_ms",
             "dyn_rollout_bwd_ms", "dyn_rollout_ee_bwd_ms", "k6_replay_ms", "k6_adjoint_ms",
             "k8_replay_ms", "k8_adjoint_ms", "k9_over_k5", "k10_over_k7")
     summary = {"card": card}
