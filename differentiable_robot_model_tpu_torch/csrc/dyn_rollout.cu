@@ -10,7 +10,13 @@
 // qds, gqs, gqds, gtau [H, D, B], ps, gps [H, 3, B], so every load and store
 // is coalesced along B.
 //
-// The forward runs one thread per scenario through the H steps.
+// The forward (K5, and K7 with the ee position after each step) takes the
+// build `kernel_variant` picks, as the backward does. On a serial chain
+// (`DrmSerial`) it spreads each scenario's step over a group of lanes, one
+// lane a link (`fwd_group_kernel`), while one thread a scenario would leave
+// the card short of warps (B = 4096: one warp an SM); at larger batches (the
+// MPPI "kernel" engine's K B lanes) and on every other robot it runs one
+// thread a scenario through the H steps (`fwd_kernel`).
 //
 // The backward (the adjoint) runs in two phases on one stream, each a
 // launch (ops/kernels/rollout.py runs them over windows of stages when the
@@ -51,8 +57,10 @@
 // FK for the _ee pair); the adjoint a replay of those, one more LDL^T solve,
 // the reverse RNEA sweep (and the J^T g sweep): thousands (forward) to tens
 // of thousands (adjoint) of FP32 operations over a few hundred bytes, so
-// operations bound them. The forward, with one thread per scenario (B=4096
-// is one warp per SM), is set by each thread's dependent chain; the
+// operations bound them. The forward is set by each scenario's dependent
+// chain of H steps: the group step cuts a step's chain to the sweeps (run on
+// every lane in lockstep) and one link's share of the rest, and gives the
+// card G times the warps; the
 // backward puts everything that does not depend on the carry into phase A,
 // H B independent threads that fill the card, and leaves phase B's chain at
 // one LDL^T solve and a 2D x D product a stage. Phase A pays D reverse
@@ -61,30 +69,49 @@
 // registers), trees on `DrmGeneric` (ops/kernels/solver.py
 // `kernel_variant` picks).
 
+#include <atomic>
 #include <cstdint>
 
 #include "dyn_step.cuh"
 
 namespace {
 
-template <typename T, int NL, int ND, bool EE>
-__global__ void fwd_kernel(const __grid_constant__ Tree<T> tr, const __grid_constant__ Chain<T> ch,
-                           const T* __restrict__ q0, const T* __restrict__ qd0,
-                           const T* __restrict__ tau, T* __restrict__ qs, T* __restrict__ qds,
-                           T* __restrict__ ps, int H, int64_t B) {
+constexpr int kThreads = 32;
+
+// One thread per scenario through the H steps: on a serial chain the
+// register-resident step (`drm_rr_fd_accel`, `drm_rr_euler`), on any other
+// robot `drm_fd_step` (measured a little faster than `drm_rr_fd_accel` on
+// `DrmGeneric`: both keep their per-link arrays in local memory); K7's ee
+// by the run-time-loop `drm_chain_sweep` (as fast as the unrolled serial
+// sweep, and without its spills at 255 registers).
+template <typename T, class P, bool EE>
+__global__ void __launch_bounds__(kThreads)
+    fwd_kernel(const __grid_constant__ Tree<T> tr, const __grid_constant__ Chain<T> ch,
+               const T* __restrict__ q0, const T* __restrict__ qd0, const T* __restrict__ tau,
+               T* __restrict__ qs, T* __restrict__ qds, T* __restrict__ ps, int H, int64_t B) {
+  constexpr int ND = P::ND;
   const int64_t b = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const int D = tr.D;
+  const int D = P::dofs(tr);
   auto at = [&](int row) { return int64_t(row) * B + b; };
   T q[ND], qd[ND];
+#pragma unroll
   for (int d = 0; d < D; ++d) {
     q[d] = q0[at(d)];
     qd[d] = qd0[at(d)];
   }
   for (int h = 0; h < H; ++h) {
     T tv[ND], qn[ND], qdn[ND];
+#pragma unroll
     for (int d = 0; d < D; ++d) tv[d] = tau[at(h * D + d)];
-    drm_fd_step<T, NL, ND>(tr, q, qd, tv, qn, qdn);
+    if constexpr (P::serial) {
+      T Lf[ND * (ND + 1) / 2], dg[ND], qdd[ND];
+      drm_rr_fd_accel<T, P>(tr, q, qd, tv, Lf, dg, qdd);
+      drm_rr_euler<T, P>(tr, q, qd, qdd, qn, qdn);
+    } else {
+      drm_fd_step<T, P::NL, ND>(tr, q, qd, tv, qn, qdn);
+    }
+#pragma unroll
     for (int d = 0; d < D; ++d) {
       q[d] = qn[d];
       qd[d] = qdn[d];
@@ -94,7 +121,236 @@ __global__ void fwd_kernel(const __grid_constant__ Tree<T> tr, const __grid_cons
     if constexpr (EE) {
       T p[3];
       drm_chain_sweep(ch, [&](int d) { return q[d]; }, DrmNoRecord{}, p);
+#pragma unroll
       for (int j = 0; j < 3; ++j) ps[at(h * 3 + j)] = p[j];
+    }
+  }
+}
+
+// One scenario on a group of G lanes of a warp, for a serial chain: lane g
+// owns link g + 1 (its dof g, and M's column of that dof). A step, every
+// lane in lockstep:
+//   1. each lane its link's local rotation (sincos, Rodrigues);
+//   2. the forward sweep link by link, each link's rotation shuffled from
+//      its owner: the RNEA's motion (qdd = 0) and the world pose, each lane
+//      running it only as far as its own link (K7's ee position at q_h is
+//      the ee link owner's world position, the chain sweep's arithmetic,
+//      stored as ps[h - 1]);
+//   3. each lane its link's force, inertia about the world origin and
+//      joint subspace;
+//   4. the backward sweep link by link, each link's rotation, force and
+//      inertia shuffled from its owner: the RNEA bias on every lane, and
+//      each lane the composite inertia of its link's subtree;
+//   5. each lane M's column of its dof, then every entry shuffled to every
+//      lane;
+//   6. on every lane Ĥ = M + dt diag(d), its LDLᵀ factor and solve, the
+//      clamp and the position update; lane g stores the dofs d with d % G
+//      == g.
+// That is `drm_rr_fd_accel` + `drm_rr_euler`'s arithmetic, operation for
+// operation: only which lane does what differs. Lanes past B run on
+// scenario B - 1 and store nothing, so that every lane meets every shuffle.
+constexpr int kGroupThreads = 64;
+
+template <typename T, int G>
+__device__ __forceinline__ T drm_group_shfl(T v, int src) {
+  return __shfl_sync(0xffffffffu, v, src, G);
+}
+
+template <typename T, class P, bool EE, int G>
+__global__ void __launch_bounds__(kGroupThreads, 4)
+    fwd_group_kernel(const __grid_constant__ Tree<T> tr, const __grid_constant__ Chain<T> ch,
+                     const T* __restrict__ q0, const T* __restrict__ qd0,
+                     const T* __restrict__ tau, T* __restrict__ qs, T* __restrict__ qds,
+                     T* __restrict__ ps, int H, int64_t B) {
+  static_assert(P::serial, "the group step is laid out for a serial chain");
+  constexpr int NL = P::NL, ND = P::ND, NP = ND * (ND + 1) / 2;
+  static_assert(G >= NL - 1 && 32 % G == 0, "a lane a moving link, a group within a warp");
+  // the link constants that differ between a group's lanes, [field][link]
+  __shared__ T sF[9][NL], sa[3][NL], scom[3][NL], sI6[6][NL], smass[NL];
+  for (int l = int(threadIdx.x); l < NL; l += int(blockDim.x)) {
+    const TreeLink<T>& L = tr.link[l];
+    for (int i = 0; i < 9; ++i) sF[i][l] = L.F[i];
+    for (int i = 0; i < 3; ++i) {
+      sa[i][l] = L.a[i];
+      scom[i][l] = L.com[i];
+    }
+    for (int i = 0; i < 6; ++i) sI6[i][l] = L.I6[i];
+    smass[l] = L.mass;
+  }
+  __syncthreads();
+  const int g = int(threadIdx.x) % G;
+  const int lk = min(g + 1, NL - 1);  // the lane's link (past the last link: the last again)
+  const int64_t bg = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const bool live = bg < B;
+  const int64_t b = live ? bg : B - 1;
+  auto at = [&](int row) { return int64_t(row) * B + b; };
+  const int ee = ch.n;  // the ee's chain: links 1 .. ee of the serial chain
+  T q[ND], qd[ND];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    q[d] = q0[at(d)];
+    qd[d] = qd0[at(d)];
+  }
+  for (int h = 0; h < H + (EE ? 1 : 0); ++h) {
+    // 1. the lane's local rotation
+    T Ro[9], F[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) F[i] = sF[i][lk];
+    if (lk <= ND) {
+      T qv = q[0];
+#pragma unroll
+      for (int d = 1; d < ND; ++d) qv = d == lk - 1 ? q[d] : qv;
+      const T a[3] = {sa[0][lk], sa[1][lk], sa[2][lk]};
+      T s, c, J[9];
+      drm_sincos(qv, &s, &c);
+      drm_rodrigues(a, c, s, J);
+      drm_mat3(F, J, Ro);
+    } else {
+      drm_copy<9>(F, Ro);
+    }
+    // 2. the forward sweep, as far as the lane's link
+    T w[3] = {T(0), T(0), T(0)}, dw[3] = {T(0), T(0), T(0)}, dv[3] = {T(0), T(0), tr.gravity};
+    T Rw[9] = {T(1), T(0), T(0), T(0), T(1), T(0), T(0), T(0), T(1)}, pw[3] = {T(0), T(0), T(0)};
+#pragma unroll
+    for (int l = 1; l < NL; ++l) {
+      T R[9];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) R[i] = drm_group_shfl<T, G>(Ro[i], l - 1);
+      if (l <= lk) {
+        const TreeLink<T>& L = tr.link[l];
+        T w_c[3], dw_c[3], dv_c[3];
+        drm_rr_motion(R, L.t, w, dw, dv, w_c, dw_c, dv_c);
+        if (l <= ND) {
+          T j[3], wxj[3];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) j[i] = L.a[i] * qd[l - 1];
+          drm_cross(w_c, j, wxj);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            w[i] = w_c[i] + j[i];
+            dw[i] = dw_c[i] + wxj[i];
+          }
+        } else {
+          drm_copy<3>(w_c, w);
+          drm_copy<3>(dw_c, dw);
+        }
+        drm_copy<3>(dv_c, dv);
+        T d[3], Rn[9];
+        drm_rot(Rw, L.t, d);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) pw[i] = pw[i] + d[i];
+        drm_mat3(Rw, R, Rn);
+        drm_copy<9>(Rn, Rw);
+      }
+    }
+    if constexpr (EE) {
+      if (h > 0 && live && g == (ee == 0 ? 0 : ee - 1)) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) ps[at((h - 1) * 3 + j)] = ee == 0 ? T(0) : pw[j];
+      }
+      if (h == H) break;
+    }
+    T tv[ND];
+#pragma unroll
+    for (int d = 0; d < ND; ++d) tv[d] = tau[at(h * ND + d)];
+    // 3. the lane's link force, inertia about the world origin, subspace
+    T of[3], on[3], oI[6], oh[3], oS[6];
+    const T om = smass[lk];
+    {
+      const T com[3] = {scom[0][lk], scom[1][lk], scom[2][lk]};
+      const T a[3] = {sa[0][lk], sa[1][lk], sa[2][lk]};
+      T I6[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) I6[i] = sI6[i][lk];
+      drm_rr_force(com, om, I6, w, dw, dv, of, on);
+      drm_rr_link_inertia(Rw, pw, com, om, I6, oI, oh);
+      drm_rr_revolute_subspace(Rw, pw, a, oS);
+    }
+    // 4. the backward sweep: the RNEA bias, and the lane's composite
+    T nle[ND], cf[3], cn[3], cI[6], cH[3], cm;
+#pragma unroll
+    for (int l = NL - 1; l >= 1; --l) {
+      const int src = l - 1;
+      T R[9], f[3], n[3], I[6], hh[3];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) R[i] = drm_group_shfl<T, G>(Ro[i], src);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        f[i] = drm_group_shfl<T, G>(of[i], src);
+        n[i] = drm_group_shfl<T, G>(on[i], src);
+        hh[i] = drm_group_shfl<T, G>(oh[i], src);
+      }
+#pragma unroll
+      for (int i = 0; i < 6; ++i) I[i] = drm_group_shfl<T, G>(oI[i], src);
+      const T m = drm_group_shfl<T, G>(om, src);
+      const TreeLink<T>& L = tr.link[l];
+      if (l < NL - 1) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          f[i] = f[i] + cf[i];
+          n[i] = n[i] + cn[i];
+        }
+      }
+      if (l <= ND) nle[l - 1] = L.a[0] * n[0] + L.a[1] * n[1] + L.a[2] * n[2];
+      T f_p[3], Rn[3], tf[3];
+      drm_rot_s(R, f, f_p);
+      drm_rot_s(R, n, Rn);
+      drm_cross(L.t, f_p, tf);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        cf[i] = f_p[i];
+        cn[i] = Rn[i] + tf[i];
+      }
+      // the composite of link l's subtree: its own, plus its child's
+      if (l == NL - 1) {
+        drm_copy<6>(I, cI);
+        drm_copy<3>(hh, cH);
+        cm = m;
+      } else if (l >= lk) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) cI[i] = I[i] + cI[i];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) cH[i] = hh[i] + cH[i];
+        cm = m + cm;
+      }
+    }
+    if (tr.use_damping) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) nle[d] = nle[d] + tr.damping[d] * qd[d];
+    }
+    // 5. M: the lane's column, then every entry on every lane
+    T Hrow[ND], cnn[3], cff[3];
+    drm_rr_crb_column(cI, cH, cm, oS, cnn, cff);
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      T Si[6];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) Si[c] = drm_group_shfl<T, G>(oS[c], i);
+      Hrow[i] = drm_rr_crb_entry(Si, cnn, cff);
+    }
+    T Lf[NP], dg[ND], rhs[ND], qdd[ND], qn[ND], qdn[ND];
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int i = 0; i <= j; ++i) Lf[drm_tri(j, i)] = drm_group_shfl<T, G>(Hrow[i], j);
+    // 6. the step on every lane
+    if (tr.use_damping) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) Lf[drm_tri(d, d)] = Lf[drm_tri(d, d)] + tr.dt_damping[d];
+    }
+    drm_rr_ldl_factor<T, P>(tr, Lf, dg);
+#pragma unroll
+    for (int d = 0; d < ND; ++d) rhs[d] = tv[d] - nle[d];
+    drm_rr_ldl_solve<T, P>(tr, Lf, dg, rhs, qdd);
+    drm_rr_euler<T, P>(tr, q, qd, qdd, qn, qdn);
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      q[d] = qn[d];
+      qd[d] = qdn[d];
+      if (live && d % G == g) {
+        qs[at(h * ND + d)] = qn[d];
+        qds[at(h * ND + d)] = qdn[d];
+      }
     }
   }
 }
@@ -336,25 +592,61 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
-constexpr int kThreads = 32;
-
 inline unsigned blocks_for(int64_t B, int threads) { return unsigned((B + threads - 1) / threads); }
 
-template <typename T>
-bool small_tree(const Tree<T>* tr) { return tr->n <= 16 && tr->D <= 16; }
+// A serial chain's group: one lane a moving link, rounded up to a power of
+// two (8 for serial9x7, 4 for serial4x2).
+template <class P>
+constexpr int group_lanes() {
+  int g = 1;
+  while (g < P::NL - 1) g *= 2;
+  return g;
+}
+
+// The group step runs while one thread a scenario would give the card's
+// SMs fewer than kOneThreadWarpsPerSM warps each. K7 at H=50 (PERF.md):
+// the group is the faster up to B=8192 (B=4096, one warp an SM, the
+// dynamic "kernel" engine's rollout: 0.39 against 0.53 ms), one thread a
+// scenario from B=12288 on (the MPPI "kernel" engine's K B = 32,768 lanes:
+// 0.53 against 1.57 ms), where its time has not yet begun to grow.
+constexpr int kOneThreadWarpsPerSM = 2;
+constexpr int kMaxDevices = 64;
+
+// The current card's SM count, read from the driver once per device.
+inline int sm_count() {
+  static std::atomic<int> known[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 1;
+  int sms = known[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 1;
+    known[dev].store(sms, std::memory_order_relaxed);
+  }
+  return sms;
+}
+
+// The least batch at which a serial chain's forward runs one thread a
+// scenario on the current card (8,448 on 132 SMs); below it, the group step.
+inline int64_t one_thread_from() { return int64_t(kThreads) * kOneThreadWarpsPerSM * sm_count(); }
+
+inline bool use_group(int64_t B) { return B < one_thread_from(); }
 
 // `ch` is null for the state-only kernels, which never read the chain.
-template <typename T, bool EE>
+template <typename T, class P, bool EE>
 int launch_fwd(const Tree<T>* tr, const Chain<T>* ch, const T* q0, const T* qd0, const T* tau,
-               T* qs, T* qds, T* ps, int H, int64_t B, void* stream) {
-  auto s = (cudaStream_t)stream;
+               T* qs, T* qds, T* ps, int H, int64_t B, cudaStream_t s) {
   const Chain<T> none{};
   const Chain<T>& c = ch ? *ch : none;
-  const unsigned g = blocks_for(B, kThreads);
-  if (small_tree(tr))
-    fwd_kernel<T, 16, 16, EE><<<g, kThreads, 0, s>>>(*tr, c, q0, qd0, tau, qs, qds, ps, H, B);
-  else
-    fwd_kernel<T, 32, 32, EE><<<g, kThreads, 0, s>>>(*tr, c, q0, qd0, tau, qs, qds, ps, H, B);
+  if constexpr (P::serial) {
+    if (use_group(B)) {
+      constexpr int G = group_lanes<P>();
+      fwd_group_kernel<T, P, EE, G><<<blocks_for(B * G, kGroupThreads), kGroupThreads, 0, s>>>(
+          *tr, c, q0, qd0, tau, qs, qds, ps, H, B);
+      return int(cudaGetLastError());
+    }
+  }
+  fwd_kernel<T, P, EE><<<blocks_for(B, kThreads), kThreads, 0, s>>>(*tr, c, q0, qd0, tau, qs, qds,
+                                                                    ps, H, B);
   return int(cudaGetLastError());
 }
 
@@ -414,15 +706,25 @@ void dyn_rollout_layout(int64_t* out) {
   out[9] = replay_base(7);
 }
 
+// The least batch at which K5/K7 on a serial chain run one thread a
+// scenario on the current device (`use_group`).
+int64_t dyn_rollout_fwd_one_thread_from() { return one_thread_from(); }
+
 #define DRM_ROLLOUT_ENTRIES(T, SFX)                                                               \
-  int dyn_rollout_fwd_##SFX(const Tree<T>* tr, const T* q0, const T* qd0, const T* tau, T* qs,   \
-                            T* qds, int H, int64_t B, void* stream) {                             \
-    return launch_fwd<T, false>(tr, nullptr, q0, qd0, tau, qs, qds, nullptr, H, B, stream);       \
+  int dyn_rollout_fwd_##SFX(int variant, const Tree<T>* tr, const T* q0, const T* qd0,         \
+                            const T* tau, T* qs, T* qds, int H, int64_t B, void* stream) {        \
+    return drm_by_variant(variant, [&](auto p) {                                                  \
+      return launch_fwd<T, decltype(p), false>(tr, nullptr, q0, qd0, tau, qs, qds, nullptr, H, B, \
+                                               (cudaStream_t)stream);                             \
+    });                                                                                           \
   }                                                                                               \
-  int dyn_rollout_ee_fwd_##SFX(const Tree<T>* tr, const Chain<T>* ch, const T* q0, const T* qd0, \
-                               const T* tau, T* qs, T* qds, T* ps, int H, int64_t B,              \
-                               void* stream) {                                                    \
-    return launch_fwd<T, true>(tr, ch, q0, qd0, tau, qs, qds, ps, H, B, stream);                  \
+  int dyn_rollout_ee_fwd_##SFX(int variant, const Tree<T>* tr, const Chain<T>* ch, const T* q0,  \
+                               const T* qd0, const T* tau, T* qs, T* qds, T* ps, int H,           \
+                               int64_t B, void* stream) {                                         \
+    return drm_by_variant(variant, [&](auto p) {                                                  \
+      return launch_fwd<T, decltype(p), true>(tr, ch, q0, qd0, tau, qs, qds, ps, H, B,            \
+                                              (cudaStream_t)stream);                              \
+    });                                                                                           \
   }                                                                                               \
   int dyn_rollout_replay_##SFX(int variant, const Tree<T>* tr, const Chain<T>* ch, const T* q0,  \
                                const T* qd0, const T* tau, const T* qs, const T* qds,             \

@@ -25,10 +25,10 @@
 // which also give K4's VJP `rnea_bwd` (rnea.cu) all three of its
 // cotangents.
 //
-// K5, K7, the prologue and K4 run the first functions of this file; K6,
-// K8, K9, K10 and `rnea_bwd` the register-resident step at its end
-// (`drm_rr_*`): the same arithmetic on a topology policy that fixes a serial
-// chain's shape at compile time.
+// The prologue, K4 and the generic builds of K5/K7 run the first functions
+// of this file; K5/K7's serial builds, K6, K8, K9, K10 and `rnea_bwd` the
+// register-resident step at its end (`drm_rr_*`): the same arithmetic on a
+// topology policy that fixes a serial chain's shape at compile time.
 #pragma once
 
 #include <cstdint>
@@ -436,7 +436,7 @@ __device__ void drm_fd_step(const Tree<T>& tr, const T* q, const T* qd, const T*
   }
 }
 
-// ---- the register-resident step (K6/K8's backward, K9, K10) -----------------
+// ---- the register-resident step (K5/K7, K6/K8's backward, K9, K10) ---------
 //
 // The functions below take the robot's topology from a policy P: the link
 // and dof counts, each link's parent, joint type and dof, each dof's link
@@ -529,23 +529,30 @@ __device__ __forceinline__ void drm_rr_motion(const T* R, const T* t, const T* w
   drm_rot_t(R, acc, dv_c);
 }
 
-// Link L's own force f = m (dv + (dw x c + w x (w x c))) and moment about
-// its origin n = (I dw + w x I w) + c x f (`_link_force`).
+// A link's own force f = m (dv + (dw x c + w x (w x c))) and moment about
+// its origin n = (I dw + w x I w) + c x f (`_link_force`), from its COM c,
+// mass m and inertia I6.
+template <typename T>
+__device__ __forceinline__ void drm_rr_force(const T* com, T mass, const T* I6, const T* w,
+                                             const T* dw, const T* dv, T* f, T* n) {
+  T wc[3], wwc[3], dwc[3], Idw[3], Iw[3], wIw[3], cf[3];
+  drm_cross(dw, com, dwc);
+  drm_cross(w, com, wc);
+  drm_cross(w, wc, wwc);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) f[i] = (dv[i] + (dwc[i] + wwc[i])) * mass;
+  drm_symm(I6, dw, Idw);
+  drm_symm(I6, w, Iw);
+  drm_cross(w, Iw, wIw);
+  drm_cross(com, f, cf);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) n[i] = (Idw[i] + wIw[i]) + cf[i];
+}
+
 template <typename T>
 __device__ __forceinline__ void drm_rr_force(const TreeLink<T>& L, const T* w, const T* dw,
                                              const T* dv, T* f, T* n) {
-  T wc[3], wwc[3], dwc[3], Idw[3], Iw[3], wIw[3], cf[3];
-  drm_cross(dw, L.com, dwc);
-  drm_cross(w, L.com, wc);
-  drm_cross(w, wc, wwc);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) f[i] = (dv[i] + (dwc[i] + wwc[i])) * L.mass;
-  drm_symm(L.I6, dw, Idw);
-  drm_symm(L.I6, w, Iw);
-  drm_cross(w, Iw, wIw);
-  drm_cross(L.com, f, cf);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) n[i] = (Idw[i] + wIw[i]) + cf[i];
+  drm_rr_force(L.com, L.mass, L.I6, w, dw, dv, f, n);
 }
 
 // The RNEA's sweeps kept for its reverse: per link its motion w, dw, dv and,
@@ -867,6 +874,68 @@ struct DrmSharedRnea {
   }
 };
 
+// A link's own inertial parameters about the world origin, from its world
+// pose (R, p), COM c, mass m and inertia I6: I_o = R I Rᵀ + m (|c_w|² E -
+// c_w c_wᵀ) into I (xx, xy, xz, yy, yz, zz) and h = m c_w (`drm_crb`'s).
+template <typename T>
+__device__ __forceinline__ void drm_rr_link_inertia(const T* R, const T* p, const T* com, T m,
+                                                    const T* I6, T* I, T* h) {
+  T rc[3], cw[3];
+  drm_rot(R, com, rc);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) cw[i] = p[i] + rc[i];
+  T rows[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const T r[3] = {R[3 * i], R[3 * i + 1], R[3 * i + 2]};
+    drm_symm(I6, r, rows[i]);
+  }
+  auto entry = [&](int i, int j) {
+    return rows[i][0] * R[3 * j] + rows[i][1] * R[3 * j + 1] + rows[i][2] * R[3 * j + 2];
+  };
+  const T cx = cw[0], cy = cw[1], cz = cw[2];
+  I[0] = entry(0, 0) + m * (cy * cy + cz * cz);
+  I[1] = entry(0, 1) - m * cx * cy;
+  I[2] = entry(0, 2) - m * cx * cz;
+  I[3] = entry(1, 1) + m * (cx * cx + cz * cz);
+  I[4] = entry(1, 2) - m * cy * cz;
+  I[5] = entry(2, 2) + m * (cx * cx + cy * cy);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) h[i] = cw[i] * m;
+}
+
+// A revolute joint's subspace about the world origin, (z, p x z) with z =
+// R a its world axis, from its link's world pose (R, p).
+template <typename T>
+__device__ __forceinline__ void drm_rr_revolute_subspace(const T* R, const T* p, const T* a, T* S) {
+  drm_rot(R, a, S);
+  drm_cross(p, S, S + 3);
+}
+
+// The column j of M from the composite (I, h, m) of dof j's subtree and
+// its subspace Sj: (n, f) = (I w + h x v, m v - h x w) for Sj = (w, v).
+template <typename T>
+__device__ __forceinline__ void drm_rr_crb_column(const T* I, const T* h, T m, const T* Sj, T* nn,
+                                                  T* f) {
+  const T* wv = Sj;
+  const T* vv = Sj + 3;
+  T Iw[3], hv[3], hw[3];
+  drm_symm(I, wv, Iw);
+  drm_cross(h, vv, hv);
+  drm_cross(h, wv, hw);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    nn[k] = Iw[k] + hv[k];
+    f[k] = vv[k] * m - hw[k];
+  }
+}
+
+// Entry (j, i) of M: <S_i, (n, f)> of column j.
+template <typename T>
+__device__ __forceinline__ T drm_rr_crb_entry(const T* Si, const T* nn, const T* f) {
+  return (Si[0] * nn[0] + Si[1] * nn[1] + Si[2] * nn[2]) + (Si[3] * f[0] + Si[4] * f[1] + Si[5] * f[2]);
+}
+
 // World-frame composite-rigid-body mass matrix M(q) into the packed lower
 // triangle Hm: `drm_crb`'s arithmetic, with each joint's subspace formed as
 // soon as its link's world pose is known, so that a serial chain holds only
@@ -889,43 +958,16 @@ __device__ __forceinline__ void drm_rr_crb(const Tree<T>& tr, const T (*Rl)[9], 
 #pragma unroll
     for (int i = 0; i < 3; ++i) pw[l][i] = pw[par][i] + d[i];
     drm_mat3(Rw[par], Rl[l], Rw[l]);
-    T rc[3], cw[3];
-    drm_rot(Rw[l], L.com, rc);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) cw[i] = pw[l][i] + rc[i];
     const T* R = Rw[l];
-    T rows[3][3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const T r[3] = {R[3 * i], R[3 * i + 1], R[3 * i + 2]};
-      drm_symm(L.I6, r, rows[i]);
-    }
-    auto entry = [&](int i, int j) {
-      return rows[i][0] * R[3 * j] + rows[i][1] * R[3 * j + 1] + rows[i][2] * R[3 * j + 2];
-    };
-    const T m = L.mass, cx = cw[0], cy = cw[1], cz = cw[2];
-    I_c[l][0] = entry(0, 0) + m * (cy * cy + cz * cz);
-    I_c[l][1] = entry(0, 1) - m * cx * cy;
-    I_c[l][2] = entry(0, 2) - m * cx * cz;
-    I_c[l][3] = entry(1, 1) + m * (cx * cx + cz * cz);
-    I_c[l][4] = entry(1, 2) - m * cy * cz;
-    I_c[l][5] = entry(2, 2) + m * (cx * cx + cy * cy);
-    m_c[l] = m;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) h_c[l][i] = cw[i] * m;
+    drm_rr_link_inertia(R, pw[l], L.com, L.mass, L.I6, I_c[l], h_c[l]);
+    m_c[l] = L.mass;
     if (ty != DRM_FIXED) {
       T* S = S_w[P::dof(tr, l)];
-      T z[3];
-      drm_rot(R, L.a, z);
       if (ty == DRM_REVOLUTE) {
-        T pz[3];
-        drm_cross(pw[l], z, pz);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          S[i] = z[i];
-          S[3 + i] = pz[i];
-        }
+        drm_rr_revolute_subspace(R, pw[l], L.a, S);
       } else {
+        T z[3];
+        drm_rot(R, L.a, z);
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
           S[i] = T(0);
@@ -947,25 +989,11 @@ __device__ __forceinline__ void drm_rr_crb(const Tree<T>& tr, const T (*Rl)[9], 
 #pragma unroll
   for (int j = 0; j < D; ++j) {
     const int lj = P::dof_link(tr, j);
-    const T* wv = S_w[j];
-    const T* vv = S_w[j] + 3;
-    T Iw[3], hv[3], hw[3], nn[3], f[3];
-    drm_symm(I_c[lj], wv, Iw);
-    drm_cross(h_c[lj], vv, hv);
-    drm_cross(h_c[lj], wv, hw);
+    T nn[3], f[3];
+    drm_rr_crb_column(I_c[lj], h_c[lj], m_c[lj], S_w[j], nn, f);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      nn[k] = Iw[k] + hv[k];
-      f[k] = vv[k] * m_c[lj] - hw[k];
-    }
-#pragma unroll
-    for (int i = 0; i <= j; ++i) {
-      const T* wi = S_w[i];
-      const T* vi = S_w[i] + 3;
-      Hm[drm_tri(j, i)] = P::anc(tr, j, i) ? (wi[0] * nn[0] + wi[1] * nn[1] + wi[2] * nn[2]) +
-                                                 (vi[0] * f[0] + vi[1] * f[1] + vi[2] * f[2])
-                                           : T(0);
-    }
+    for (int i = 0; i <= j; ++i)
+      Hm[drm_tri(j, i)] = P::anc(tr, j, i) ? drm_rr_crb_entry(S_w[i], nn, f) : T(0);
   }
 }
 
@@ -1097,8 +1125,8 @@ __device__ __forceinline__ void drm_rr_ee(const Chain<T>& ch, const T* q, Rec re
     drm_chain_sweep(ch, [&](int d) { return q[d]; }, rec, pw);
 }
 
-// The instantiations of K6/K8's backward, K9, K10 and `rnea_bwd`, by the
-// code ops/kernels/rollout.py `kernel_variant` passes.
+// The instantiations of K5-K8, K9, K10 and `rnea_bwd`, by the code
+// ops/kernels/rollout.py `kernel_variant` passes.
 enum DrmVariant { DRM_GENERIC16 = 0, DRM_GENERIC32 = 1, DRM_SERIAL_9_7 = 2, DRM_SERIAL_4_2 = 3 };
 
 // (links, dofs) of DRM_SERIAL_9_7 and DRM_SERIAL_4_2, for the Python side's check.

@@ -37,11 +37,14 @@ Bound on the H100: per scenario and step the function needs one RNEA, one
 composite-rigid-body mass matrix, an LDL^T factor and solve (and one chain
 FK for the ee pair); the adjoint a replay of the step, one more solve, one
 reverse RNEA sweep (and the J^T g sweep): a few thousand FP32 operations
-for iiwa over a few hundred bytes, so operations bound it. The forward
-runs one thread per scenario, and at B=4096 (one warp per SM) each
-thread's dependent chain sets its time; the adjoint's phase A runs H B
-independent threads, and its phase B one thread per scenario on a chain a
-fraction of a step long.
+for iiwa over a few hundred bytes, so operations bound it. Each scenario's
+chain of H dependent steps sets the forward's time: on a serial chain of a
+built shape the forwards spread a scenario's step over a group of lanes,
+one lane a link, while one thread a scenario would leave the card short of
+warps, and run one thread a scenario at larger batches and on every other
+robot (csrc/dyn_rollout.cu); the adjoint's phase A runs H B independent
+threads, and its phase B one thread per scenario on a chain a fraction of
+a step long.
 
 On a CUDA tensor the wrappers launch the kernels or raise; they take the
 plain versions only for tensors on the CPU.
@@ -51,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -307,14 +311,26 @@ def kernel_variant(robot: RobotStruct) -> str:
     0..D-1, the rest fixed: iiwa, panda_no_gripper, fetch_arm, the 2-link
     robot), else "generic16" or "generic32" by its link and dof counts.
     Raises for a robot beyond 32 links or dofs."""
-    L, D = robot.n_links, robot.n_dofs
+    return _variant_of(tuple(robot.parent), tuple(robot.joint_types), tuple(robot.dof_links))
+
+
+def variant_code(robot: RobotStruct) -> int:
+    """`kernel_variant(robot)`'s code, the leading int of each entry."""
+    return VARIANTS.index(kernel_variant(robot))
+
+
+@functools.lru_cache(maxsize=None)
+def _variant_of(parent: tuple, joint_types: tuple, dof_links: tuple) -> str:
+    """`kernel_variant` of a topology, computed once per topology (it runs
+    on every launch of K4-K10)."""
+    L, D = len(parent), len(dof_links)
     if L > MAX_LINKS or D > MAX_DOF:
         raise ValueError(f"{L} links and {D} dofs exceed the kernels' {MAX_LINKS} and {MAX_DOF}")
     types = (JOINT_FIXED,) + (JOINT_REVOLUTE,) * D + (JOINT_FIXED,) * (L - 1 - D)
     serial = (
-        all(robot.parent[l] == l - 1 for l in range(1, L))
-        and tuple(robot.joint_types) == types
-        and tuple(robot.dof_links) == tuple(range(1, D + 1))
+        all(parent[l] == l - 1 for l in range(1, L))
+        and joint_types == types
+        and dof_links == tuple(range(1, D + 1))
     )
     if serial and (L, D) in SERIAL_SHAPES:
         return SERIAL_SHAPES[(L, D)]
@@ -606,13 +622,15 @@ def _configure(lib: ctypes.CDLL) -> None:
                            f"Python {replay_layout(7, False, False).K}")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     # (leading ints, pointers, trailing ints) of each entry, then B and the stream
-    shapes = {"dyn_rollout_fwd": (0, 6, 1), "dyn_rollout_ee_fwd": (0, 8, 1),
+    shapes = {"dyn_rollout_fwd": (1, 6, 1), "dyn_rollout_ee_fwd": (1, 8, 1),
               "dyn_rollout_replay": (1, 12, 5), "dyn_rollout_adjoint": (1, 5, 6)}
     for name, (lead, n, trail) in shapes.items():
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{sfx}")
             fn.argtypes = [i] * lead + [p] * n + [i] * trail + [i64, p]
             fn.restype = ctypes.c_int
+    lib.dyn_rollout_fwd_one_thread_from.argtypes = []
+    lib.dyn_rollout_fwd_one_thread_from.restype = i64
 
 
 def _launch(name, args, dev):
@@ -622,6 +640,15 @@ def _launch(name, args, dev):
         rc = getattr(lib, name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def fwd_one_thread_from(device) -> int:
+    """The least batch at which K5/K7 on a serial chain run one thread a
+    scenario on the CUDA `device` (`use_group`, csrc/dyn_rollout.cu);
+    below it each scenario's step runs on a group of lanes."""
+    lib = build.load("dyn_rollout", _configure)
+    with torch.cuda.device(device):
+        return int(lib.dyn_rollout_fwd_one_thread_from())
 
 
 def _ptr(x):
@@ -635,6 +662,23 @@ def _check_all_cuda(named):
             _check_cuda(x, name)
 
 
+def _fwd_launch(robot, flags, ee_link_idx, q0T, qd0T, tauT, outs):
+    """Launch K5 (`ee_link_idx` None; outs qs, qds) or K7 (outs qs, qds, ps)
+    on the build `kernel_variant` picks for the robot."""
+    H, D, B = tauT.shape
+    structs = (ctypes.byref(tree_struct(robot, flags)),)
+    name = "dyn_rollout_fwd"
+    if ee_link_idx is not None:
+        structs += (ctypes.byref(chain_struct(robot, ee_link_idx)),)
+        name = "dyn_rollout_ee_fwd"
+    _launch(
+        f"{name}_{_suffix(tauT.dtype)}",
+        (variant_code(robot), *structs,
+         *(x.data_ptr() for x in (q0T, qd0T, tauT, *outs)), H, B),
+        tauT.device,
+    )
+
+
 def dyn_rollout_fwd(robot, q0T, qd0T, tauT, dt, use_damping=True, include_gravity=True,
                     gravity=GRAVITY):
     """Kernel `dyn_rollout_fwd`: H steps from (q0T, qd0T [D, B]) under
@@ -645,15 +689,10 @@ def dyn_rollout_fwd(robot, q0T, qd0T, tauT, dt, use_damping=True, include_gravit
             robot, q0T, qd0T, tauT, dt, use_damping, include_gravity, gravity
         )
     _check_all_cuda((("q0T", q0T), ("qd0T", qd0T), ("tauT", tauT)))
-    tree = tree_struct(robot, StepFlags(dt, use_damping, include_gravity, gravity))
     qs, qds = torch.empty_like(tauT), torch.empty_like(tauT)
     if B:
-        _launch(
-            f"dyn_rollout_fwd_{_suffix(tauT.dtype)}",
-            (ctypes.byref(tree), q0T.data_ptr(), qd0T.data_ptr(), tauT.data_ptr(),
-             qs.data_ptr(), qds.data_ptr(), H, B),
-            tauT.device,
-        )
+        _fwd_launch(robot, StepFlags(dt, use_damping, include_gravity, gravity), None, q0T, qd0T,
+                    tauT, (qs, qds))
         dyn_rollout_fwd.launches += 1
     return qs, qds
 
@@ -672,17 +711,11 @@ def dyn_rollout_ee_fwd(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping=True
             robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping, include_gravity, gravity
         )
     _check_all_cuda((("q0T", q0T), ("qd0T", qd0T), ("tauT", tauT)))
-    tree = tree_struct(robot, StepFlags(dt, use_damping, include_gravity, gravity))
-    ch = chain_struct(robot, ee_link_idx)
     qs, qds = torch.empty_like(tauT), torch.empty_like(tauT)
     ps = torch.empty((H, 3, B), dtype=tauT.dtype, device=tauT.device)
     if B:
-        _launch(
-            f"dyn_rollout_ee_fwd_{_suffix(tauT.dtype)}",
-            (ctypes.byref(tree), ctypes.byref(ch), q0T.data_ptr(), qd0T.data_ptr(),
-             tauT.data_ptr(), qs.data_ptr(), qds.data_ptr(), ps.data_ptr(), H, B),
-            tauT.device,
-        )
+        _fwd_launch(robot, StepFlags(dt, use_damping, include_gravity, gravity), ee_link_idx, q0T,
+                    qd0T, tauT, (qs, qds, ps))
         dyn_rollout_ee_fwd.launches += 1
     return qs, qds, ps
 
@@ -698,7 +731,7 @@ def _bwd_operands(robot, flags, ee_link_idx, ins):
     tree = tree_struct(robot, flags)
     ch = None if ps is None else chain_struct(robot, ee_link_idx)
     lay = replay_layout(robot.n_dofs, gqs is not None or ps is not None, gqds is not None)
-    return tree, ch, lay, VARIANTS.index(kernel_variant(robot))
+    return tree, ch, lay, variant_code(robot)
 
 
 def _replay_launch(tree, ch, variant, lay, ins, scr, h0, nh, B, dev):
@@ -807,7 +840,7 @@ def dyn_rollout_adjoint(robot, scr, dt, gqx: bool, gqdx: bool, use_damping=True,
     gtau = scr.new_empty((H, lay.D, B))
     gq0, gqd0 = scr.new_empty((lay.D, B)), scr.new_empty((lay.D, B))
     if B:
-        _adjoint_launch(tree, VARIANTS.index(kernel_variant(robot)), lay, scr.contiguous(), gtau,
+        _adjoint_launch(tree, variant_code(robot), lay, scr.contiguous(), gtau,
                         gq0, gqd0, 0, H, False, B, scr.device)
     return gtau, gq0, gqd0
 

@@ -1,6 +1,7 @@
-"""Time K3 `kin_solve`, K9 `dyn_solve`, K10 `mppi_solve`, K6
-`dyn_rollout_bwd`, K8 `dyn_rollout_ee_bwd` and `rnea_bwd` of one or two
-checkouts of the port on one CUDA card, beside K5 and K7.
+"""Time K3 `kin_solve`, K9 `dyn_solve`, K10 `mppi_solve`, K5
+`dyn_rollout_fwd`, K6 `dyn_rollout_bwd`, K7 `dyn_rollout_ee_fwd`, K8
+`dyn_rollout_ee_bwd` and `rnea_bwd` of one or two checkouts of the port on
+one CUDA card.
 
     python3 tools/time_solves.py [--check] [--detail]   # this checkout
     python3 tools/time_solves.py --ab DIR [--check]     # and the checkout at DIR
@@ -10,29 +11,39 @@ one checkout and builds that checkout's kernels there (nvcc, into its
 `build/kernels/`): K3 at iiwa B=4096, H=50, 10 iterations, lr 0.05, eps
 1.0, warm-started (the kinematic MPC main path's shape), `rnea_bwd` at iiwa
 B=65536 float32 (the model API's), K9 at iiwa B=4096, H=50, 10 iterations
-(the dynamic MPC main path's shape), K10 at iiwa B=256, K=128, H=50, 10 iterations (the MPPI
-main path's), K5 `dyn_rollout_fwd` and K7 `dyn_rollout_ee_fwd` at iiwa
-B=4096, H=50, K6 (a cotangent on qs) and K8 (one on the ee trajectory) at
-the same shape, and, where the checkout has them, K6's and K8's two phases
-alone (`dyn_rollout_replay`, `dyn_rollout_adjoint`), each the median of 20
-launches by CUDA events after 3 warm-ups, and the ratios K9/K5 and K10/K7
-(K5 and K7 are the same code in both checkouts, so the ratios carry from
-one call to the next). Each prints ptxas's report for K9's, K10's and
-K6/K8's kernels (registers, stack frame, spills) and one JSON line. With
-`--ab DIR` the checkouts run in turns: DIR's, this one's, this one's,
-DIR's, then a summary line of the medians. With `--check`, this
-checkout's K3, K9, K10, K6, K8 and `rnea_bwd` are first held to their
-plain versions at small shapes (K3: B=64, H=10, 3 iterations, float32; K9:
-B=64, H=10, 5 iterations, the effort box off and on; K10: B=16, K=64,
-H=10, 3 iterations, float64; K6 and K8: B=64, H=10, float64, every
-cotangent at once; `rnea_bwd`: B=256, float64), and the run fails if they
-disagree (K3 actions within 2e-3 and costs within 1e-3 relative, K9
-torques within 5e-3, K10, K6, K8 and `rnea_bwd` within 1e-9 of the largest
-entry). With `--detail`, this checkout's K3 is also timed alone at B=1
-(one warp: its scans' and its stage pass's dependent chains), K9 on iiwa with the generic 16-link build
-in place of the serial one and on the 2-link robot, K10 alone at B=1 (one
-block: its dependent chain), and the SASS instructions of each K3, K9,
-K10, K6/K8-phase and `rnea_bwd` instantiation are counted (`cuobjdump`).
+(the dynamic MPC main path's shape), K10 at iiwa B=256, K=128, H=50, 10
+iterations (the MPPI main path's), K5 at iiwa H=50, B=4096 (the
+differentiated `dynamic_rollout`), K7 at every shape a path launches it
+at (`K7_SHAPES`: H=50, B=4096, the dynamic `kernel` engine's rollout; H=1,
+B=4096 and H=1, B=256, the dynamic and MPPI plant steps; H=50, B=32768,
+the MPPI `kernel` engine's K B sample lanes), K6 (a cotangent on qs) and
+K8 (one on the ee trajectory) at H=50, B=4096, and, where the checkout has
+them, K6's and K8's two phases alone (`dyn_rollout_replay`,
+`dyn_rollout_adjoint`), each the median of 20 launches by CUDA events after
+3 warm-ups (K7's plant steps, H=1, also with the card held busy while the
+host queues each call, which times the card's work alone, and by the
+host's wall time per call), and one warm replan of each MPC path at its main shape (the
+kinematic `fused` engine, the dynamic and MPPI `fused` and `kernel`
+engines), the median of 20 the same way. Each prints ptxas's report for
+K3's, `rnea_bwd`'s, K5/K7's, K6/K8's, K9's and K10's kernels (registers,
+stack frame, spills) and one JSON line. With `--ab DIR` the checkouts run in turns: DIR's, this one's,
+this one's, DIR's, then a summary line of the medians. With `--check`,
+this checkout's K3, K9, K10, K5, K7, K6, K8 and `rnea_bwd` are first held
+to their plain versions at small shapes (K3: B=64, H=10, 3 iterations,
+float32; K9: B=64, H=10, 5 iterations, the effort box off and on; K10:
+B=16, K=64, H=10, 3 iterations, float64; K5 and K7: H=10 at B=64 and at
+13 past the least batch that runs a serial chain one thread a scenario
+(8,461 on 132 SMs), float32 and float64; K6 and K8: B=64, H=10, float64, every cotangent at once;
+`rnea_bwd`: B=256, float64), and the run fails if they disagree (K3
+actions within 2e-3 and costs within 1e-3 relative, K9 torques within
+5e-3, float32 K5/K7 qs, qds and ps within 5e-4, 2e-3 and 5e-5 or no
+farther from float64 than twice the plain float32 (median and max over the
+scenarios), K10, float64 K5, K7, K6, K8 and `rnea_bwd` within 1e-9 of the
+largest entry). With `--detail`, this checkout's K3, K5, K7 and K10 are
+also timed alone at B=1 (their dependent chains), K9 on iiwa with the
+generic 16-link build in place of the serial one and on the 2-link robot,
+and the SASS instructions of each K3, K5/K7, K9, K10, K6/K8-phase and
+`rnea_bwd` instantiation are counted (`cuobjdump`).
 
 A second checkout of a parent commit can be made with `git archive`
 (`mkdir -p build/parent && git archive HEAD~1 differentiable_robot_model_tpu_torch
@@ -48,6 +59,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -56,6 +68,9 @@ DT, LR, EPS, GOAL_W, EFFORT_W = 0.02, 0.5, 0.1, 10.0, 1e-4
 KIN_LR, KIN_GOAL_W, KIN_EPS = 0.05, 100.0, 1.0  # MPCConfig's lr, the kinematic solve's goal weight, eps
 REPS = 20
 DEVICE = "cuda"
+# (H, B) of each shape a path launches K7 at; K5 runs at (H, B)
+K7_SHAPES = ((50, 4096), (1, 4096), (1, 256), (50, 32768))
+QS_TOL, QDS_TOL, PS_TOL, F64_SLACK = 5e-4, 2e-3, 5e-5, 2.0
 
 
 def _sync_ms(torch, fn, reps=REPS, warmup=3):
@@ -71,6 +86,38 @@ def _sync_ms(torch, fn, reps=REPS, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _card_ms(torch, fn, reps=REPS, warmup=3):
+    """As `_sync_ms`, with the card held busy (`torch.cuda._sleep`, ~1 ms)
+    while the host queues the events and the call, so that they time the
+    card's work alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _host_us(torch, fn, n=200):
+    """The host's wall time per call, µs, over n calls queued back to back
+    (the card's work per call is shorter, so the queue does not fill)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / n * 1e6
 
 
 def _ptxas(report, kernel):
@@ -130,7 +177,8 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
            + _ptxas(build.compiler_report("dyn_solve"), "dyn_solve_")
            + _ptxas(build.compiler_report("mppi_solve"), "mppi_kernel")
            + [line for kernel in ("bwd_kernel", "replay_kernel", "adjoint_kernel")
-              for line in _ptxas(build.compiler_report("dyn_rollout"), kernel)]}
+              for line in _ptxas(build.compiler_report("dyn_rollout"), kernel)]
+           + _ptxas(build.compiler_report("dyn_rollout"), "fwd_")}
     kkw = dict(lr=KIN_LR, goal_weight=KIN_GOAL_W, eps=KIN_EPS)
     if check:
         q0T, _, goalT = problem(64, 0.3)
@@ -171,6 +219,7 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
         out["check_k10_f64"] = e
         if not e <= 1e-9:
             raise AssertionError(f"float64 K10 disagrees with its plain version: {e}")
+        out.update(_check_forwards(torch, kr, s, ee, dev))
         gen = torch.Generator(device=dev).manual_seed(5)
         q0T, qd0T = (x[:, :64].double().contiguous() for x in problem(64, 0.3)[:2])
         tau = torch.randn((10, D, 64), generator=gen, device=dev, dtype=torch.float64)
@@ -207,9 +256,7 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
                                   device=dev)).contiguous()
     args = (s, q0T, qd0T, goalT, tr, H0, a0, ee)
     out["dyn_solve_ms"] = _sync_ms(torch, lambda: ks.dynamic_adam_solve(*args, n_iters=ITERS, **kw))
-    out["dyn_rollout_fwd_ms"] = _sync_ms(torch, lambda: kr.dyn_rollout_fwd(s, q0T, qd0T, tau, DT))
-    out["dyn_rollout_ee_fwd_ms"] = _sync_ms(
-        torch, lambda: kr.dyn_rollout_ee_fwd(s, q0T, qd0T, tau, DT, ee))
+    out.update(_time_forwards(torch, kr, s, ee, dev, detail))
     # K6 with a cotangent on qs, K8 with one on the ee trajectory, and their
     # phases where this checkout has them apart
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -231,8 +278,7 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
     tr, H0, a0 = ks.dyn_prologue(s, q0T, None, H)
     margs = (s, q0T, qd0T, goalT, tr, H0, a0, 7, ee)
     out["mppi_solve_ms"] = _sync_ms(torch, lambda: ks.mppi_solve(*margs, **mkw(MPPI_K, ITERS)))
-    out["k9_over_k5"] = out["dyn_solve_ms"] / out["dyn_rollout_fwd_ms"]
-    out["k10_over_k7"] = out["mppi_solve_ms"] / out["dyn_rollout_ee_fwd_ms"]
+    out.update(_time_replans(torch, s, ee, problem, q0T))
     if detail:
         # K9 on iiwa with the generic 16-link build forced in place of its
         # serial one, and on the 2-link robot's serial build
@@ -254,6 +300,112 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
     return out
 
 
+def _forward_inputs(torch, D, H_, B_, dev, dtype):
+    """q0, qd0 [D, B] and tau [H, D, B] of K5/K7, uniform from a seed."""
+    gen = torch.Generator(device=dev).manual_seed(H_ * 7919 + B_)
+    u = lambda *shape, a: ((torch.rand(shape, generator=gen, device=dev, dtype=torch.float64) * 2 - 1)
+                           * a).to(dtype).contiguous()
+    return u(D, B_, a=0.5), u(D, B_, a=0.2), u(H_, D, B_, a=3.0)
+
+
+def _time_forwards(torch, kr, s, ee, dev, detail):
+    """K5 at H=50, B=4096 and K7 at each of K7_SHAPES (and, with `detail`,
+    both at B=1)."""
+    out = {}
+    x = _forward_inputs(torch, s.n_dofs, H, B, dev, torch.float32)
+    out["dyn_rollout_fwd_ms"] = _sync_ms(torch, lambda: kr.dyn_rollout_fwd(s, *x, DT))
+    shapes = K7_SHAPES + (((H, 1),) if detail else ())
+    for Hs, Bs in shapes:
+        y = _forward_inputs(torch, s.n_dofs, Hs, Bs, dev, torch.float32)
+        tag = "" if (Hs, Bs) == (H, B) else f"_h{Hs}_b{Bs}"
+        call = lambda: kr.dyn_rollout_ee_fwd(s, *y, DT, ee)
+        out[f"dyn_rollout_ee_fwd{tag}_ms"] = _sync_ms(torch, call)
+        if Hs == 1:  # the plant step, where the host's time shows in the events
+            out[f"dyn_rollout_ee_fwd{tag}_card_ms"] = _card_ms(torch, call)
+            out[f"dyn_rollout_ee_fwd{tag}_host_us"] = _host_us(torch, call)
+    if detail:
+        y = _forward_inputs(torch, s.n_dofs, H, 1, dev, torch.float32)
+        out[f"dyn_rollout_fwd_h{H}_b1_ms"] = _sync_ms(torch, lambda: kr.dyn_rollout_fwd(s, *y, DT))
+    return out
+
+
+def _time_replans(torch, s, ee, problem, mppi_q0T):
+    """One warm replan of each MPC path at its main shape (the kinematic and
+    dynamic paths at iiwa H=50, B=4096, 10 iterations; MPPI at B=256,
+    K=128), on the `fused` engines and on the dynamic and MPPI `kernel`
+    engines (K7 12 times a replan, K8 10 times on the dynamic one)."""
+    from differentiable_robot_model_tpu_torch.trajopt import mpc
+
+    q0T, _, goalT = problem(B, 0.3)
+    q0, goals = q0T.T.contiguous(), goalT.T.contiguous()
+    kcfg = mpc.MPCConfig(horizon=H, iters_per_step=ITERS, lr=KIN_LR)
+    steps = {"kin_fused": (mpc.make_mpc_step_batch(s, ee, kcfg, fk_impl="fused", eps=KIN_EPS),
+                           mpc.mpc_init(s, q0, kcfg), goals)}
+    for engine in ("fused", "kernel"):
+        cfg = mpc.DynamicMPCConfig(horizon=H, iters_per_step=ITERS, rollout_impl=engine)
+        steps[f"dyn_{engine}"] = (mpc.make_dynamic_mpc_step_batch(s, ee, cfg),
+                                  mpc.dynamic_mpc_init(s, q0, torch.zeros_like(q0), cfg), goals)
+    mq0 = mppi_q0T.T.contiguous()
+    mgoals = goals[:MPPI_B]
+    for engine in ("fused", "kernel"):
+        cfg = mpc.MPPIMPCConfig(horizon=H, iters_per_step=ITERS, n_samples=MPPI_K,
+                                rollout_impl=engine)
+        steps[f"mppi_{engine}"] = (mpc.make_mppi_mpc_step_batch(s, ee, cfg),
+                                   mpc.mppi_mpc_init(s, mq0, torch.zeros_like(mq0), cfg, 7), mgoals)
+    out = {}
+    for name, (step, state, g) in steps.items():
+        state, _ = step(state, g)
+        out[f"replan_{name}_ms"] = _sync_ms(torch, lambda: step(state, g))
+    return out
+
+
+def _check_forwards(torch, kr, s, ee, dev):
+    """K5 and K7 against their plain versions at H=10 on B=64 (a serial
+    chain's group step) and on the least batch past the card's switch to
+    one thread a scenario, plus a ragged 13 (`fwd_one_thread_from`):
+    float64 within 1e-9 of the largest entry; float32 qs, qds, ps within
+    QS_TOL, QDS_TOL, PS_TOL, or no farther from float64 than F64_SLACK
+    times the plain float32 (median and max over the scenarios, ROADMAP
+    F4)."""
+    out = {}
+    one_thread = kr.fwd_one_thread_from(dev) + 13
+    out["check_fwd_one_thread_b"] = one_thread
+    for Bc in (64, one_thread):
+        out.update(_check_forwards_at(torch, kr, s, ee, dev, Bc, "" if Bc == 64 else f"_b{Bc}"))
+    return out
+
+
+def _check_forwards_at(torch, kr, s, ee, dev, Bc, sfx):
+    """`_check_forwards` at H=10, batch Bc; its keys end in `sfx`."""
+    out = {}
+    s64 = s.to(dtype=torch.float64)
+
+    def lane_err(a, b):
+        per = (a.double() - b.double()).abs().reshape(-1, a.shape[-1]).amax(0)
+        return per.median().item(), per.max().item()
+
+    x64 = _forward_inputs(torch, s.n_dofs, 10, Bc, dev, torch.float64)
+    x32 = [t.float() for t in x64]
+    for tag, kern, ref, extra, tols in (
+            ("k5" + sfx, kr.dyn_rollout_fwd, kr.dyn_rollout_fwd_reference, (), (QS_TOL, QDS_TOL)),
+            ("k7" + sfx, kr.dyn_rollout_ee_fwd, kr.dyn_rollout_ee_fwd_reference, (ee,),
+             (QS_TOL, QDS_TOL, PS_TOL))):
+        k64, p64 = kern(s64, *x64, DT, *extra), ref(s64, *x64, DT, *extra)
+        e = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(k64, p64))
+        out[f"check_{tag}_f64"] = e
+        if not e <= 1e-9:
+            raise AssertionError(f"float64 {tag.upper()} disagrees with its plain version: {e}")
+        k32, p32 = kern(s, *x32, DT, *extra), ref(s, *x32, DT, *extra)
+        e32 = [(a - b).abs().max().item() for a, b in zip(k32, p32)]
+        out[f"check_{tag}_f32"] = e32
+        near = all(e <= t for e, t in zip(e32, tols)) or all(
+            kv <= F64_SLACK * pv for a, b, c in zip(k32, p32, p64)
+            for kv, pv in zip(lane_err(a, c), lane_err(b, c)))
+        if not near:
+            raise AssertionError(f"float32 {tag.upper()} disagrees with its plain version: {e32}")
+    return out
+
+
 def _sass_counts(build):
     """The SASS instruction count of each K3, rnea_bwd, K9, K10 and
     K6/K8-phase instantiation (`cuobjdump -sass`), where the toolkit has
@@ -262,7 +414,8 @@ def _sass_counts(build):
     counts = {}
     for name, kernel in (("kin_solve", "kin_solve_kernel"), ("rnea", "rnea_bwd_kernel"),
                          ("dyn_solve", "dyn_solve_"), ("mppi_solve", "mppi_kernel"),
-                         ("dyn_rollout", "replay_kernel"), ("dyn_rollout", "adjoint_kernel")):
+                         ("dyn_rollout", "replay_kernel"), ("dyn_rollout", "adjoint_kernel"),
+                         ("dyn_rollout", "fwd_")):
         if not exe.exists():
             break
         sass = subprocess.run([str(exe), "-sass", str(build.library_path(name))],
@@ -283,11 +436,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", type=Path, help="a second checkout, timed in turns with this one")
     ap.add_argument("--check", action="store_true", help="first hold this checkout's K3, K9, "
-                    "K10, K6, K8 and rnea_bwd to their plain versions at small shapes")
-    ap.add_argument("--detail", action="store_true", help="also time this checkout's K3 "
-                    "at B=1, K9 on iiwa's generic build and on "
-                    "the 2-link robot, K10 at B=1, and count the SASS instructions of each K3, "
-                    "rnea_bwd, K9, K10 and K6/K8-phase instantiation")
+                    "K10, K5, K7, K6, K8 and rnea_bwd to their plain versions at small shapes")
+    ap.add_argument("--detail", action="store_true", help="also time this checkout's K3, K5, "
+                    "K7 and K10 at B=1, K9 on iiwa's generic build and on the 2-link robot, and "
+                    "count the SASS instructions of each K3, K5/K7, rnea_bwd, K9, K10 and "
+                    "K6/K8-phase instantiation")
     ap.add_argument("--root", type=Path, help=argparse.SUPPRESS)  # one measurement, in this process
     a = ap.parse_args()
     if a.root is not None:
@@ -311,9 +464,12 @@ def main() -> int:
             sys.stderr.write(p.stderr)
             return p.returncode
         runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
-    keys = ("kin_solve_ms", "rnea_bwd_ms", "dyn_solve_ms", "mppi_solve_ms", "dyn_rollout_fwd_ms", "dyn_rollout_ee_fwd_ms",
+    keys = ("kin_solve_ms", "rnea_bwd_ms", "dyn_solve_ms", "mppi_solve_ms", "dyn_rollout_fwd_ms",
+            *(f"dyn_rollout_ee_fwd{'' if (h, b) == (H, B) else f'_h{h}_b{b}'}_ms" for h, b in K7_SHAPES),
+            *(f"dyn_rollout_ee_fwd_h1_b{b}_{k}" for _, b in K7_SHAPES[1:3] for k in ("card_ms", "host_us")),
             "dyn_rollout_bwd_ms", "dyn_rollout_ee_bwd_ms", "k6_replay_ms", "k6_adjoint_ms",
-            "k8_replay_ms", "k8_adjoint_ms", "k9_over_k5", "k10_over_k7")
+            "k8_replay_ms", "k8_adjoint_ms", *(f"replan_{p}_ms" for p in (
+                "kin_fused", "dyn_fused", "dyn_kernel", "mppi_fused", "mppi_kernel")))
     summary = {"card": card}
     for label, root in (("this", ROOT), ("other", a.ab)):
         mine = [r for r in runs if root is not None and Path(r["root"]) == root]
