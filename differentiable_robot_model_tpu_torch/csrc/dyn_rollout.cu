@@ -141,8 +141,9 @@ __global__ void __launch_bounds__(kThreads)
 //   4. the backward sweep link by link, each link's rotation, force and
 //      inertia shuffled from its owner: the RNEA bias on every lane, and
 //      each lane the composite inertia of its link's subtree;
-//   5. each lane M's column of its dof, then every entry shuffled to every
-//      lane;
+//   5. each lane M's row of its dof, then every entry shuffled to every
+//      lane (steps 1-2 `drm_group_forward`, 3-5 `drm_group_backward`,
+//      dyn_step.cuh, which the prologue's group shares);
 //   6. on every lane Ĥ = M + dt diag(d), its LDLᵀ factor and solve, the
 //      clamp and the position update; lane g stores the dofs d with d % G
 //      == g.
@@ -150,11 +151,6 @@ __global__ void __launch_bounds__(kThreads)
 // operation: only which lane does what differs. Lanes past B run on
 // scenario B - 1 and store nothing, so that every lane meets every shuffle.
 constexpr int kGroupThreads = 64;
-
-template <typename T, int G>
-__device__ __forceinline__ T drm_group_shfl(T v, int src) {
-  return __shfl_sync(0xffffffffu, v, src, G);
-}
 
 template <typename T, class P, bool EE, int G>
 __global__ void __launch_bounds__(kGroupThreads, 4)
@@ -165,18 +161,8 @@ __global__ void __launch_bounds__(kGroupThreads, 4)
   static_assert(P::serial, "the group step is laid out for a serial chain");
   constexpr int NL = P::NL, ND = P::ND, NP = ND * (ND + 1) / 2;
   static_assert(G >= NL - 1 && 32 % G == 0, "a lane a moving link, a group within a warp");
-  // the link constants that differ between a group's lanes, [field][link]
-  __shared__ T sF[9][NL], sa[3][NL], scom[3][NL], sI6[6][NL], smass[NL];
-  for (int l = int(threadIdx.x); l < NL; l += int(blockDim.x)) {
-    const TreeLink<T>& L = tr.link[l];
-    for (int i = 0; i < 9; ++i) sF[i][l] = L.F[i];
-    for (int i = 0; i < 3; ++i) {
-      sa[i][l] = L.a[i];
-      scom[i][l] = L.com[i];
-    }
-    for (int i = 0; i < 6; ++i) sI6[i][l] = L.I6[i];
-    smass[l] = L.mass;
-  }
+  __shared__ DrmGroupLinks<T, NL> sl;
+  sl.load(tr);
   __syncthreads();
   const int g = int(threadIdx.x) % G;
   const int lk = min(g + 1, NL - 1);  // the lane's link (past the last link: the last again)
@@ -192,57 +178,9 @@ __global__ void __launch_bounds__(kGroupThreads, 4)
     qd[d] = qd0[at(d)];
   }
   for (int h = 0; h < H + (EE ? 1 : 0); ++h) {
-    // 1. the lane's local rotation
-    T Ro[9], F[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) F[i] = sF[i][lk];
-    if (lk <= ND) {
-      T qv = q[0];
-#pragma unroll
-      for (int d = 1; d < ND; ++d) qv = d == lk - 1 ? q[d] : qv;
-      const T a[3] = {sa[0][lk], sa[1][lk], sa[2][lk]};
-      T s, c, J[9];
-      drm_sincos(qv, &s, &c);
-      drm_rodrigues(a, c, s, J);
-      drm_mat3(F, J, Ro);
-    } else {
-      drm_copy<9>(F, Ro);
-    }
-    // 2. the forward sweep, as far as the lane's link
-    T w[3] = {T(0), T(0), T(0)}, dw[3] = {T(0), T(0), T(0)}, dv[3] = {T(0), T(0), tr.gravity};
-    T Rw[9] = {T(1), T(0), T(0), T(0), T(1), T(0), T(0), T(0), T(1)}, pw[3] = {T(0), T(0), T(0)};
-#pragma unroll
-    for (int l = 1; l < NL; ++l) {
-      T R[9];
-#pragma unroll
-      for (int i = 0; i < 9; ++i) R[i] = drm_group_shfl<T, G>(Ro[i], l - 1);
-      if (l <= lk) {
-        const TreeLink<T>& L = tr.link[l];
-        T w_c[3], dw_c[3], dv_c[3];
-        drm_rr_motion(R, L.t, w, dw, dv, w_c, dw_c, dv_c);
-        if (l <= ND) {
-          T j[3], wxj[3];
-#pragma unroll
-          for (int i = 0; i < 3; ++i) j[i] = L.a[i] * qd[l - 1];
-          drm_cross(w_c, j, wxj);
-#pragma unroll
-          for (int i = 0; i < 3; ++i) {
-            w[i] = w_c[i] + j[i];
-            dw[i] = dw_c[i] + wxj[i];
-          }
-        } else {
-          drm_copy<3>(w_c, w);
-          drm_copy<3>(dw_c, dw);
-        }
-        drm_copy<3>(dv_c, dv);
-        T d[3], Rn[9];
-        drm_rot(Rw, L.t, d);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) pw[i] = pw[i] + d[i];
-        drm_mat3(Rw, R, Rn);
-        drm_copy<9>(Rn, Rw);
-      }
-    }
+    // 1-2. the lane's local rotation, the forward sweep as far as its link
+    T Ro[9], w[3], dw[3], dv[3], Rw[9], pw[3];
+    drm_group_forward<T, P, G>(tr, sl, lk, q, qd, Ro, w, dw, dv, Rw, pw);
     if constexpr (EE) {
       if (h > 0 && live && g == (ee == 0 ? 0 : ee - 1)) {
 #pragma unroll
@@ -253,86 +191,13 @@ __global__ void __launch_bounds__(kGroupThreads, 4)
     T tv[ND];
 #pragma unroll
     for (int d = 0; d < ND; ++d) tv[d] = tau[at(h * ND + d)];
-    // 3. the lane's link force, inertia about the world origin, subspace
-    T of[3], on[3], oI[6], oh[3], oS[6];
-    const T om = smass[lk];
-    {
-      const T com[3] = {scom[0][lk], scom[1][lk], scom[2][lk]};
-      const T a[3] = {sa[0][lk], sa[1][lk], sa[2][lk]};
-      T I6[6];
-#pragma unroll
-      for (int i = 0; i < 6; ++i) I6[i] = sI6[i][lk];
-      drm_rr_force(com, om, I6, w, dw, dv, of, on);
-      drm_rr_link_inertia(Rw, pw, com, om, I6, oI, oh);
-      drm_rr_revolute_subspace(Rw, pw, a, oS);
-    }
-    // 4. the backward sweep: the RNEA bias, and the lane's composite
-    T nle[ND], cf[3], cn[3], cI[6], cH[3], cm;
-#pragma unroll
-    for (int l = NL - 1; l >= 1; --l) {
-      const int src = l - 1;
-      T R[9], f[3], n[3], I[6], hh[3];
-#pragma unroll
-      for (int i = 0; i < 9; ++i) R[i] = drm_group_shfl<T, G>(Ro[i], src);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        f[i] = drm_group_shfl<T, G>(of[i], src);
-        n[i] = drm_group_shfl<T, G>(on[i], src);
-        hh[i] = drm_group_shfl<T, G>(oh[i], src);
-      }
-#pragma unroll
-      for (int i = 0; i < 6; ++i) I[i] = drm_group_shfl<T, G>(oI[i], src);
-      const T m = drm_group_shfl<T, G>(om, src);
-      const TreeLink<T>& L = tr.link[l];
-      if (l < NL - 1) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          f[i] = f[i] + cf[i];
-          n[i] = n[i] + cn[i];
-        }
-      }
-      if (l <= ND) nle[l - 1] = L.a[0] * n[0] + L.a[1] * n[1] + L.a[2] * n[2];
-      T f_p[3], Rn[3], tf[3];
-      drm_rot_s(R, f, f_p);
-      drm_rot_s(R, n, Rn);
-      drm_cross(L.t, f_p, tf);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        cf[i] = f_p[i];
-        cn[i] = Rn[i] + tf[i];
-      }
-      // the composite of link l's subtree: its own, plus its child's
-      if (l == NL - 1) {
-        drm_copy<6>(I, cI);
-        drm_copy<3>(hh, cH);
-        cm = m;
-      } else if (l >= lk) {
-#pragma unroll
-        for (int i = 0; i < 6; ++i) cI[i] = I[i] + cI[i];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) cH[i] = hh[i] + cH[i];
-        cm = m + cm;
-      }
-    }
+    // 3-5. the backward sweep: the RNEA bias, and M on every lane
+    T nle[ND], Lf[NP], dg[ND], rhs[ND], qdd[ND], qn[ND], qdn[ND];
+    drm_group_backward<T, P, G>(tr, sl, lk, Ro, w, dw, dv, Rw, pw, nle, Lf);
     if (tr.use_damping) {
 #pragma unroll
       for (int d = 0; d < ND; ++d) nle[d] = nle[d] + tr.damping[d] * qd[d];
     }
-    // 5. M: the lane's column, then every entry on every lane
-    T Hrow[ND], cnn[3], cff[3];
-    drm_rr_crb_column(cI, cH, cm, oS, cnn, cff);
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      T Si[6];
-#pragma unroll
-      for (int c = 0; c < 6; ++c) Si[c] = drm_group_shfl<T, G>(oS[c], i);
-      Hrow[i] = drm_rr_crb_entry(Si, cnn, cff);
-    }
-    T Lf[NP], dg[ND], rhs[ND], qdd[ND], qn[ND], qdn[ND];
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-#pragma unroll
-      for (int i = 0; i <= j; ++i) Lf[drm_tri(j, i)] = drm_group_shfl<T, G>(Hrow[i], j);
     // 6. the step on every lane
     if (tr.use_damping) {
 #pragma unroll
@@ -594,15 +459,6 @@ __global__ void __launch_bounds__(kLanes)
 
 inline unsigned blocks_for(int64_t B, int threads) { return unsigned((B + threads - 1) / threads); }
 
-// A serial chain's group: one lane a moving link, rounded up to a power of
-// two (8 for serial9x7, 4 for serial4x2).
-template <class P>
-constexpr int group_lanes() {
-  int g = 1;
-  while (g < P::NL - 1) g *= 2;
-  return g;
-}
-
 // The group step runs while one thread a scenario would give the card's
 // SMs fewer than kOneThreadWarpsPerSM warps each. K7 at H=50 (PERF.md):
 // the group is the faster up to B=8192 (B=4096, one warp an SM, the
@@ -639,7 +495,7 @@ int launch_fwd(const Tree<T>* tr, const Chain<T>* ch, const T* q0, const T* qd0,
   const Chain<T>& c = ch ? *ch : none;
   if constexpr (P::serial) {
     if (use_group(B)) {
-      constexpr int G = group_lanes<P>();
+      constexpr int G = drm_group_lanes<P>();
       fwd_group_kernel<T, P, EE, G><<<blocks_for(B * G, kGroupThreads), kGroupThreads, 0, s>>>(
           *tr, c, q0, qd0, tau, qs, qds, ps, H, B);
       return int(cudaGetLastError());

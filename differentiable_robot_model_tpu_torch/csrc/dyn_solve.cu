@@ -515,56 +515,203 @@ __global__ void __launch_bounds__(2 * kPairLanes)
   }
 }
 
-template <typename T, int NL, int ND>
-__global__ void prologue_kernel(const __grid_constant__ Tree<T> tr, const T* __restrict__ q0,
-                                const T* __restrict__ init, T* __restrict__ tau_ref,
-                                T* __restrict__ H0, T* __restrict__ a0, int H, int precond,
-                                int64_t B) {
-  const int64_t b = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int D = tr.D;
+// ---- the prologue ------------------------------------------------------------
+//
+// Per scenario: tau_ref = RNEA(q0, 0, 0) with gravity, H0 = M(q0) (the
+// plain mass matrix: no dt diag(d) on its diagonal) and its LDL^T factor,
+// then a0[h] = H0^-1 (init[h] - tau_ref) for every stage h < H (zeros
+// without init, the plain difference without precond). Phase 1 is each
+// scenario's chain up to the factor, which it leaves in shared memory;
+// phase 2, after a barrier, spreads the H solves, which share the factor
+// and not each other's results, over the block's threads: one (stage,
+// scenario) pair at a time, scenario fastest, so that the reads of init and
+// the writes of a0 stay coalesced. On a serial chain phase 1 runs a
+// scenario on a group of lanes, one lane a link (`prologue_group_kernel`,
+// fwd_group_kernel's layout in dyn_rollout.cu); the generic builds run it
+// one thread a scenario (`prologue_kernel`). Both give the card the same
+// warps, 64 threads to 8 scenarios (16 for the 2-link robot's group of
+// 4): the group keeps all of them busy in phase 1 and its chain short. On
+// iiwa it measured as fast as one thread a scenario or faster at B=4096
+// and within 4% at B=256 (PERF.md, the prologue's phase 1).
+
+// What phase 1 leaves in shared memory for each scenario: the factor's
+// packed lower triangle (entry (i, k) at drm_tri(i, k); the diagonal's slots
+// unused), its diagonal at kDg, tau_ref at kTrf; the stride odd, so that
+// lanes on distinct scenarios read distinct banks.
+template <class P>
+struct PrologueKeep {
+  static constexpr int NP = P::ND * (P::ND + 1) / 2;
+  static constexpr int kDg = NP, kTrf = NP + P::ND, kStride = (NP + 2 * P::ND) | 1;
+};
+
+// Phase 2 for the block's S scenarios b0 ... b0 + S - 1.
+template <typename T, class P, int S>
+__device__ __forceinline__ void prologue_solves(const Tree<T>& tr, const T* keep,
+                                                const T* __restrict__ init, T* __restrict__ a0,
+                                                int H, int precond, int64_t b0, int64_t B) {
+  using K = PrologueKeep<P>;
+  constexpr int ND = P::ND;
+  const int D = P::dofs(tr);
+  for (int pair = int(threadIdx.x); pair < H * S; pair += int(blockDim.x)) {
+    const int h = pair / S, j = pair % S;
+    const int64_t b = b0 + j;
+    if (b >= B) continue;
+    auto at = [&](int row) { return int64_t(row) * B + b; };
+    const T* mine = keep + j * K::kStride;
+    T rhs[ND], x[ND];
+#pragma unroll
+    for (int d = 0; d < D; ++d) rhs[d] = init ? init[at(h * D + d)] - mine[K::kTrf + d] : T(0);
+    if (init && precond) {
+      drm_rr_ldl_solve<T, P>(tr, mine, mine + K::kDg, rhs, x);
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) x[d] = rhs[d];
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) a0[at(h * D + d)] = x[d];
+  }
+}
+
+// Phase 1 on one thread a scenario (threads 0 ... S-1 of the block's NT),
+// on the policy's register-resident sweeps.
+template <typename T, class P, int S, int NT>
+__global__ void __launch_bounds__(NT)
+    prologue_kernel(const __grid_constant__ Tree<T> tr, const T* __restrict__ q0,
+                    const T* __restrict__ init, T* __restrict__ tau_ref, T* __restrict__ H0,
+                    T* __restrict__ a0, int H, int precond, int64_t B) {
+  static_assert(S <= NT && NT % S == 0, "a block's threads cover its scenarios evenly");
+  using K = PrologueKeep<P>;
+  constexpr int NL = P::NL, ND = P::ND;
+  __shared__ T keep[S * K::kStride];
+  const int D = P::dofs(tr);
+  const int64_t b0 = int64_t(blockIdx.x) * S;
+  const int j = int(threadIdx.x);
+  if (j < S && b0 + j < B) {
+    const int64_t b = b0 + j;
+    auto at = [&](int row) { return int64_t(row) * B + b; };
+    T* mine = keep + j * K::kStride;
+    T q[ND], zero[ND], trf[ND], R[NL][9], t[NL][3];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      q[d] = q0[at(d)];
+      zero[d] = T(0);
+    }
+    drm_rr_local<T, P>(tr, q, R, t);
+    {
+      DrmRneaState<T, P> st;
+      drm_rr_rnea<T, P>(tr, R, t, zero, zero, st, trf);
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      tau_ref[at(d)] = trf[d];
+      mine[K::kTrf + d] = trf[d];
+    }
+    if (precond) {
+      T Lf[K::NP], dg[ND];
+      drm_rr_crb<T, P>(tr, R, t, Lf);
+#pragma unroll
+      for (int i = 0; i < D; ++i)
+#pragma unroll
+        for (int k = 0; k < D; ++k) H0[at(i * D + k)] = Lf[k <= i ? drm_tri(i, k) : drm_tri(k, i)];
+      drm_rr_ldl_factor<T, P>(tr, Lf, dg);
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+#pragma unroll
+        for (int k = 0; k < i; ++k) mine[drm_tri(i, k)] = Lf[drm_tri(i, k)];
+        mine[K::kDg + i] = dg[i];
+      }
+    }
+  }
+  __syncthreads();
+  prologue_solves<T, P, S>(tr, keep, init, a0, H, precond, b0, B);
+}
+
+// Phase 1 of a serial chain on a group of G lanes a scenario, S scenarios a
+// block: a step of fwd_group_kernel (dyn_rollout.cu) at qd = 0, lane g
+// owning link g + 1 (its dof g, and M's row of that dof):
+// `drm_group_forward` and `drm_group_backward` give every lane tau_ref
+// (the RNEA's bias at qd = qdd = 0) and M, then every lane factors M, and
+// lane g stores dof g's values. `prologue_kernel`'s arithmetic; lanes past
+// B run on scenario B - 1 and store nothing, so that every lane meets every
+// shuffle.
+template <typename T, class P, int G, int S>
+__global__ void __launch_bounds__(G * S)
+    prologue_group_kernel(const __grid_constant__ Tree<T> tr, const T* __restrict__ q0,
+                          const T* __restrict__ init, T* __restrict__ tau_ref,
+                          T* __restrict__ H0, T* __restrict__ a0, int H, int precond, int64_t B) {
+  static_assert(P::serial, "the group is laid out for a serial chain");
+  static_assert(G >= P::NL - 1 && 32 % G == 0 && (G * S) % 32 == 0,
+                "a lane a moving link, whole warps of whole groups");
+  using K = PrologueKeep<P>;
+  constexpr int NL = P::NL, ND = P::ND;
+  __shared__ T keep[S * K::kStride];
+  __shared__ DrmGroupLinks<T, NL> sl;
+  sl.load(tr);
+  __syncthreads();
+  const int g = int(threadIdx.x) % G, j = int(threadIdx.x) / G;
+  const int lk = min(g + 1, NL - 1);  // the lane's link (past the last link: the last again)
+  const int64_t b0 = int64_t(blockIdx.x) * S;
+  const bool live = b0 + j < B;
+  const int64_t b = live ? b0 + j : B - 1;
   auto at = [&](int row) { return int64_t(row) * B + b; };
-  T q[ND], zero[ND], trf[ND], Lf[ND * (ND + 1) / 2], dg[ND];
-  for (int d = 0; d < D; ++d) {
+  T* mine = keep + j * K::kStride;
+  T q[ND], zero[ND];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
     q[d] = q0[at(d)];
     zero[d] = T(0);
   }
-  {
-    T Rl[NL][9], tl[NL][3];
-    drm_local_all<T, T, NL>(tr, q, Rl, tl);
-    drm_rnea<T, T, NL>(tr, Rl, tl, zero, zero, trf);
-    if (precond) drm_crb<T, NL, ND>(tr, Rl, tl, Lf);
+  T Ro[9], w[3], dw[3], dv[3], Rw[9], pw[3], trf[ND], Lf[K::NP], dg[ND];
+  drm_group_forward<T, P, G>(tr, sl, lk, q, zero, Ro, w, dw, dv, Rw, pw);
+  drm_group_backward<T, P, G>(tr, sl, lk, Ro, w, dw, dv, Rw, pw, trf, Lf);
+  // lane g: dof g's tau_ref, H0's row and column g, the factor's row g
+#pragma unroll
+  for (int r = 0; r < ND; ++r) {
+    if (!live || r != g) continue;
+    tau_ref[at(r)] = trf[r];
+    mine[K::kTrf + r] = trf[r];
+    if (precond) {
+#pragma unroll
+      for (int i = 0; i <= r; ++i) {
+        H0[at(r * ND + i)] = Lf[drm_tri(r, i)];
+        H0[at(i * ND + r)] = Lf[drm_tri(r, i)];
+      }
+    }
   }
-  for (int d = 0; d < D; ++d) tau_ref[at(d)] = trf[d];
   if (precond) {
-    for (int i = 0; i < D; ++i)
-      for (int j = 0; j < D; ++j) H0[at(i * D + j)] = Lf[j <= i ? drm_tri(i, j) : drm_tri(j, i)];
-    drm_ldl_factor(Lf, dg, D);
+    drm_rr_ldl_factor<T, P>(tr, Lf, dg);
+#pragma unroll
+    for (int r = 0; r < ND; ++r) {
+      if (!live || r != g) continue;
+#pragma unroll
+      for (int k = 0; k < r; ++k) mine[drm_tri(r, k)] = Lf[drm_tri(r, k)];
+      mine[K::kDg + r] = dg[r];
+    }
   }
-  for (int h = 0; h < H; ++h) {
-    T rhs[ND], x[ND];
-    for (int d = 0; d < D; ++d) rhs[d] = init ? init[at(h * D + d)] - trf[d] : T(0);
-    if (init && precond)
-      drm_ldl_solve<T, ND>(Lf, dg, D, rhs, x);
-    else
-      for (int d = 0; d < D; ++d) x[d] = rhs[d];
-    for (int d = 0; d < D; ++d) a0[at(h * D + d)] = x[d];
-  }
+  __syncthreads();
+  prologue_solves<T, P, S>(tr, keep, init, a0, H, precond, b0, B);
 }
 
 inline unsigned blocks_for(int64_t B) { return unsigned((B + kThreads - 1) / kThreads); }
 
 template <typename T>
-int launch_prologue(const Tree<T>* tr, const T* q0, const T* init, T* tau_ref, T* H0, T* a0,
-                    int H, int precond, int64_t B, void* stream) {
+int launch_prologue(int variant, const Tree<T>* tr, const T* q0, const T* init, T* tau_ref, T* H0,
+                    T* a0, int H, int precond, int64_t B, void* stream) {
   auto s = (cudaStream_t)stream;
-  if (tr->n <= 16 && tr->D <= 16)
-    prologue_kernel<T, 16, 16><<<blocks_for(B), kThreads, 0, s>>>(*tr, q0, init, tau_ref, H0, a0,
-                                                                  H, precond, B);
-  else
-    prologue_kernel<T, 32, 32><<<blocks_for(B), kThreads, 0, s>>>(*tr, q0, init, tau_ref, H0, a0,
-                                                                  H, precond, B);
-  return int(cudaGetLastError());
+  return drm_by_variant(variant, [&](auto p) {
+    using P = decltype(p);
+    if constexpr (P::serial) {
+      constexpr int G = drm_group_lanes<P>(), S = 64 / G;
+      prologue_group_kernel<T, P, G, S><<<unsigned((B + S - 1) / S), G * S, 0, s>>>(
+          *tr, q0, init, tau_ref, H0, a0, H, precond, B);
+    } else {
+      // 8 scenarios a block: a 32-dof float64 factor is ~4.7 KB of shared
+      // memory a scenario
+      prologue_kernel<T, P, 8, 64><<<unsigned((B + 7) / 8), 64, 0, s>>>(*tr, q0, init, tau_ref, H0,
+                                                                       a0, H, precond, B);
+    }
+    return int(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -583,15 +730,17 @@ void dyn_solve_layout(int64_t* out) {
   drm_variant_shapes(out + 4);
 }
 
-int dyn_prologue_f32(const Tree<float>* tr, const float* q0, const float* init, float* tau_ref,
-                     float* H0, float* a0, int H, int precond, int64_t B, void* stream) {
-  return launch_prologue(tr, q0, init, tau_ref, H0, a0, H, precond, B, stream);
+// `variant`: the instantiation ops/kernels/rollout.py `kernel_variant` names.
+int dyn_prologue_f32(int variant, const Tree<float>* tr, const float* q0, const float* init,
+                     float* tau_ref, float* H0, float* a0, int H, int precond, int64_t B,
+                     void* stream) {
+  return launch_prologue(variant, tr, q0, init, tau_ref, H0, a0, H, precond, B, stream);
 }
 
-int dyn_prologue_f64(const Tree<double>* tr, const double* q0, const double* init,
+int dyn_prologue_f64(int variant, const Tree<double>* tr, const double* q0, const double* init,
                      double* tau_ref, double* H0, double* a0, int H, int precond, int64_t B,
                      void* stream) {
-  return launch_prologue(tr, q0, init, tau_ref, H0, a0, H, precond, B, stream);
+  return launch_prologue(variant, tr, q0, init, tau_ref, H0, a0, H, precond, B, stream);
 }
 
 int dyn_solve_f32(int variant, const Tree<float>* tr, const Chain<float>* ch,

@@ -25,10 +25,12 @@
 // which also give K4's VJP `rnea_bwd` (rnea.cu) all three of its
 // cotangents.
 //
-// The prologue, K4 and the generic builds of K5/K7 run the first functions
-// of this file; K5/K7's serial builds, K6, K8, K9, K10 and `rnea_bwd` the
+// The generic builds of K5/K7 run the first functions of this file; K4,
+// `rnea_bwd`, the prologue, K5/K7's serial builds, K6, K8, K9 and K10 the
 // register-resident step at its end (`drm_rr_*`): the same arithmetic on a
-// topology policy that fixes a serial chain's shape at compile time.
+// topology policy that fixes a serial chain's shape at compile time (or
+// reads a tree's at run time). K5/K7 and the prologue spread a serial
+// chain's step over a group of lanes (`drm_group_*`).
 #pragma once
 
 #include <cstdint>
@@ -1125,7 +1127,198 @@ __device__ __forceinline__ void drm_rr_ee(const Chain<T>& ch, const T* q, Rec re
     drm_chain_sweep(ch, [&](int d) { return q[d]; }, rec, pw);
 }
 
-// The instantiations of K5-K8, K9, K10 and `rnea_bwd`, by the code
+// A serial chain's group (fwd_group_kernel in dyn_rollout.cu, the
+// prologue's group in dyn_solve.cu): one lane a moving link, rounded up to a
+// power of two (8 for DrmSerial<9, 7>, 4 for DrmSerial<4, 2>), and the
+// shuffle within it.
+template <class P>
+constexpr int drm_group_lanes() {
+  int g = 1;
+  while (g < P::NL - 1) g *= 2;
+  return g;
+}
+
+template <typename T, int G>
+__device__ __forceinline__ T drm_group_shfl(T v, int src) {
+  return __shfl_sync(0xffffffffu, v, src, G);
+}
+
+// The link constants that differ between a group's lanes, in shared memory
+// ([field][link]; read from the parameter bank, a group's distinct links
+// would serialise).
+template <typename T, int NL>
+struct DrmGroupLinks {
+  T F[9][NL], a[3][NL], com[3][NL], I6[6][NL], mass[NL];
+  // by the block's threads; a __syncthreads() must follow
+  __device__ __forceinline__ void load(const Tree<T>& tr) {
+    for (int l = int(threadIdx.x); l < NL; l += int(blockDim.x)) {
+      const TreeLink<T>& L = tr.link[l];
+      for (int i = 0; i < 9; ++i) F[i][l] = L.F[i];
+      for (int i = 0; i < 3; ++i) {
+        a[i][l] = L.a[i];
+        com[i][l] = L.com[i];
+      }
+      for (int i = 0; i < 6; ++i) I6[i][l] = L.I6[i];
+      mass[l] = L.mass;
+    }
+  }
+};
+
+// The first half of a serial chain's step on a group of G lanes, lane g
+// owning link lk = min(g + 1, NL - 1) (its dof g): the lane's local rotation
+// Ro at q, then the forward sweep as far as its own link, each link's
+// rotation shuffled from its owner: the RNEA's motion at (q, qd) and qdd =
+// 0 (w, dw, dv) and the link's world pose (Rw, pw). Every lane meets every
+// shuffle. `drm_rr_rnea`'s and `drm_rr_crb`'s arithmetic, operation for
+// operation.
+template <typename T, class P, int G>
+__device__ __forceinline__ void drm_group_forward(const Tree<T>& tr,
+                                                  const DrmGroupLinks<T, P::NL>& sl, int lk,
+                                                  const T* q, const T* qd, T* Ro, T* w, T* dw,
+                                                  T* dv, T* Rw, T* pw) {
+  constexpr int NL = P::NL, ND = P::ND;
+  T F[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) F[i] = sl.F[i][lk];
+  if (lk <= ND) {
+    T qv = q[0];
+#pragma unroll
+    for (int d = 1; d < ND; ++d) qv = d == lk - 1 ? q[d] : qv;
+    const T a[3] = {sl.a[0][lk], sl.a[1][lk], sl.a[2][lk]};
+    T s, c, J[9];
+    drm_sincos(qv, &s, &c);
+    drm_rodrigues(a, c, s, J);
+    drm_mat3(F, J, Ro);
+  } else {
+    drm_copy<9>(F, Ro);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) w[i] = dw[i] = dv[i] = pw[i] = T(0);
+  dv[2] = tr.gravity;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) Rw[i] = (i % 4 == 0) ? T(1) : T(0);
+#pragma unroll
+  for (int l = 1; l < NL; ++l) {
+    T R[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) R[i] = drm_group_shfl<T, G>(Ro[i], l - 1);
+    if (l <= lk) {
+      const TreeLink<T>& L = tr.link[l];
+      T w_c[3], dw_c[3], dv_c[3];
+      drm_rr_motion(R, L.t, w, dw, dv, w_c, dw_c, dv_c);
+      if (l <= ND) {
+        T j[3], wxj[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) j[i] = L.a[i] * qd[l - 1];
+        drm_cross(w_c, j, wxj);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          w[i] = w_c[i] + j[i];
+          dw[i] = dw_c[i] + wxj[i];
+        }
+      } else {
+        drm_copy<3>(w_c, w);
+        drm_copy<3>(dw_c, dw);
+      }
+      drm_copy<3>(dv_c, dv);
+      T d[3], Rn[9];
+      drm_rot(Rw, L.t, d);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) pw[i] = pw[i] + d[i];
+      drm_mat3(Rw, R, Rn);
+      drm_copy<9>(Rn, Rw);
+    }
+  }
+}
+
+// The second half, from `drm_group_forward`'s outputs: each lane its link's
+// force, inertia about the world origin and joint subspace; the backward
+// sweep, each link's values shuffled from its owner: the RNEA's bias nle
+// at qdd = 0 on every lane (without the damping term d qd) and the lane's
+// composite; the lane's row of M, then the packed lower triangle of M
+// (entry (i, k) at drm_tri(i, k)) on every lane.
+template <typename T, class P, int G>
+__device__ __forceinline__ void drm_group_backward(const Tree<T>& tr,
+                                                   const DrmGroupLinks<T, P::NL>& sl, int lk,
+                                                   const T* Ro, const T* w, const T* dw,
+                                                   const T* dv, const T* Rw, const T* pw, T* nle,
+                                                   T* M) {
+  constexpr int NL = P::NL, ND = P::ND;
+  T of[3], on[3], oI[6], oh[3], oS[6];
+  const T om = sl.mass[lk];
+  {
+    const T com[3] = {sl.com[0][lk], sl.com[1][lk], sl.com[2][lk]};
+    const T a[3] = {sl.a[0][lk], sl.a[1][lk], sl.a[2][lk]};
+    T I6[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) I6[i] = sl.I6[i][lk];
+    drm_rr_force(com, om, I6, w, dw, dv, of, on);
+    drm_rr_link_inertia(Rw, pw, com, om, I6, oI, oh);
+    drm_rr_revolute_subspace(Rw, pw, a, oS);
+  }
+  T cf[3], cn[3], cI[6], cH[3], cm;
+#pragma unroll
+  for (int l = NL - 1; l >= 1; --l) {
+    const int src = l - 1;
+    T R[9], f[3], n[3], I[6], hh[3];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) R[i] = drm_group_shfl<T, G>(Ro[i], src);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      f[i] = drm_group_shfl<T, G>(of[i], src);
+      n[i] = drm_group_shfl<T, G>(on[i], src);
+      hh[i] = drm_group_shfl<T, G>(oh[i], src);
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) I[i] = drm_group_shfl<T, G>(oI[i], src);
+    const T m = drm_group_shfl<T, G>(om, src);
+    const TreeLink<T>& L = tr.link[l];
+    if (l < NL - 1) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        f[i] = f[i] + cf[i];
+        n[i] = n[i] + cn[i];
+      }
+    }
+    if (l <= ND) nle[l - 1] = L.a[0] * n[0] + L.a[1] * n[1] + L.a[2] * n[2];
+    T f_p[3], Rn[3], tf[3];
+    drm_rot_s(R, f, f_p);
+    drm_rot_s(R, n, Rn);
+    drm_cross(L.t, f_p, tf);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      cf[i] = f_p[i];
+      cn[i] = Rn[i] + tf[i];
+    }
+    // the composite of link l's subtree: its own, plus its child's
+    if (l == NL - 1) {
+      drm_copy<6>(I, cI);
+      drm_copy<3>(hh, cH);
+      cm = m;
+    } else if (l >= lk) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) cI[i] = I[i] + cI[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) cH[i] = hh[i] + cH[i];
+      cm = m + cm;
+    }
+  }
+  T Hrow[ND], cnn[3], cff[3];
+  drm_rr_crb_column(cI, cH, cm, oS, cnn, cff);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    T Si[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) Si[c] = drm_group_shfl<T, G>(oS[c], i);
+    Hrow[i] = drm_rr_crb_entry(Si, cnn, cff);
+  }
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int i = 0; i <= j; ++i) M[drm_tri(j, i)] = drm_group_shfl<T, G>(Hrow[i], j);
+}
+
+// The instantiations of K4-K10, `rnea_bwd` and the prologue, by the code
 // ops/kernels/rollout.py `kernel_variant` passes.
 enum DrmVariant { DRM_GENERIC16 = 0, DRM_GENERIC32 = 1, DRM_SERIAL_9_7 = 2, DRM_SERIAL_4_2 = 3 };
 

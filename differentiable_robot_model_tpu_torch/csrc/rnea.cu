@@ -14,18 +14,22 @@
 // cotangents are [B, D], one thread per scenario reading its own row. The
 // JAX wrapper transposes to dof-major tiles first; here no transpose is
 // made: a warp's loads of one dof are D entries apart, and the 32 rows it
-// reads (32 * D values) are consecutive, so L1 serves the other dofs.
+// reads are consecutive, so L1 serves the other dofs. (Staging a block's
+// rows through shared memory with coalesced 16-byte copies, and storing tau
+// the same way, measured no faster in float32 and slower in float64:
+// PERF.md, K4's memory side.)
 //
 // Bound on the H100: per scenario rnea_fwd moves 16 D bytes (float32) and
 // needs about a thousand FP32 operations for iiwa once the robot's
 // constants are folded, so the bytes and the operations bound it about
 // equally (chip_smoke.py counts both); rnea_bwd needs the reverse sweep
-// more, so operations bound it. rnea_fwd runs the generic sweeps of
-// dyn_step.cuh's first part, its per-link state in local memory; rnea_bwd
-// runs on the topology policy `kernel_variant` picks (ops/kernels/rollout.py),
-// so that on a serial chain of a built shape (iiwa, the 2-link robot) its
-// loops unroll and its per-link state stays in registers. At B=65536 there
-// are 16 warps per SM.
+// more, so operations bound it. Both run on the topology policy
+// `kernel_variant` picks (ops/kernels/rollout.py): on a serial chain of a
+// built shape (iiwa, the 2-link robot) their loops unroll and the per-link
+// state stays in registers; trees take the generic 16- or 32-link build
+// (where `drm_rr_rnea` measured as fast as the older `drm_rnea` or
+// faster). rnea_fwd is `drm_rr_local` + `drm_rr_rnea`, the first half of
+// rnea_bwd. At B=65536 there are 16 warps per SM.
 
 #include <cstdint>
 
@@ -35,26 +39,28 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ x, int64_t row, int D, T* out) {
-  for (int d = 0; d < D; ++d) out[d] = x[row + d];
-}
-
-template <typename T, int NL, int ND>
-__global__ void rnea_fwd_kernel(const __grid_constant__ Tree<T> tr, const T* __restrict__ q,
-                                const T* __restrict__ qd, const T* __restrict__ qdd,
-                                T* __restrict__ tau, int64_t B) {
+template <typename T, class P>
+__global__ void __launch_bounds__(kThreads)
+rnea_fwd_kernel(const __grid_constant__ Tree<T> tr, const T* __restrict__ q,
+                const T* __restrict__ qd, const T* __restrict__ qdd, T* __restrict__ tau,
+                int64_t B) {
   const int64_t b = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const int D = tr.D;
+  constexpr int NL = P::NL, ND = P::ND;
+  const int D = P::dofs(tr);
   const int64_t row = b * D;
   T qv[ND], qdv[ND], qddv[ND], tv[ND];
-  load_row(q, row, D, qv);
-  load_row(qd, row, D, qdv);
-  load_row(qdd, row, D, qddv);
-  T Rl[NL][9], tl[NL][3];
-  drm_local_all<T, T, NL>(tr, qv, Rl, tl);
-  drm_rnea<T, T, NL>(tr, Rl, tl, qdv, qddv, tv);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    qv[d] = q[row + d];
+    qdv[d] = qd[row + d];
+    qddv[d] = qdd[row + d];
+  }
+  T R[NL][9], t[NL][3];
+  drm_rr_local<T, P>(tr, qv, R, t);
+  DrmRneaState<T, P> st;
+  drm_rr_rnea<T, P>(tr, R, t, qdv, qddv, st, tv);
+#pragma unroll
   for (int d = 0; d < D; ++d) tau[row + d] = tv[d];
 }
 
@@ -93,17 +99,13 @@ rnea_bwd_kernel(const __grid_constant__ Tree<T> tr, const T* __restrict__ q,
 inline unsigned blocks_for(int64_t B) { return unsigned((B + kThreads - 1) / kThreads); }
 
 template <typename T>
-bool small_tree(const Tree<T>* tr) { return tr->n <= 16 && tr->D <= 16; }
-
-template <typename T>
-int launch_fwd(const Tree<T>* tr, const T* q, const T* qd, const T* qdd, T* tau, int64_t B,
-               void* stream) {
+int launch_fwd(int variant, const Tree<T>* tr, const T* q, const T* qd, const T* qdd, T* tau,
+               int64_t B, void* stream) {
   auto s = (cudaStream_t)stream;
-  if (small_tree(tr))
-    rnea_fwd_kernel<T, 16, 16><<<blocks_for(B), kThreads, 0, s>>>(*tr, q, qd, qdd, tau, B);
-  else
-    rnea_fwd_kernel<T, 32, 32><<<blocks_for(B), kThreads, 0, s>>>(*tr, q, qd, qdd, tau, B);
-  return int(cudaGetLastError());
+  return drm_by_variant(variant, [&](auto p) {
+    rnea_fwd_kernel<T, decltype(p)><<<blocks_for(B), kThreads, 0, s>>>(*tr, q, qd, qdd, tau, B);
+    return int(cudaGetLastError());
+  });
 }
 
 template <typename T>
@@ -131,17 +133,17 @@ void rnea_layout(int64_t* out) {
   drm_variant_shapes(out + 3);
 }
 
-int rnea_fwd_f32(const Tree<float>* tr, const float* q, const float* qd, const float* qdd,
-                 float* tau, int64_t B, void* stream) {
-  return launch_fwd(tr, q, qd, qdd, tau, B, stream);
-}
-
-int rnea_fwd_f64(const Tree<double>* tr, const double* q, const double* qd, const double* qdd,
-                 double* tau, int64_t B, void* stream) {
-  return launch_fwd(tr, q, qd, qdd, tau, B, stream);
-}
-
 // `variant`: the instantiation ops/kernels/rollout.py `kernel_variant` names.
+int rnea_fwd_f32(int variant, const Tree<float>* tr, const float* q, const float* qd,
+                 const float* qdd, float* tau, int64_t B, void* stream) {
+  return launch_fwd(variant, tr, q, qd, qdd, tau, B, stream);
+}
+
+int rnea_fwd_f64(int variant, const Tree<double>* tr, const double* q, const double* qd,
+                 const double* qdd, double* tau, int64_t B, void* stream) {
+  return launch_fwd(variant, tr, q, qd, qdd, tau, B, stream);
+}
+
 int rnea_bwd_f32(int variant, const Tree<float>* tr, const float* q, const float* qd,
                  const float* qdd, const float* g, float* gq, float* gqd, float* gqdd, int64_t B,
                  void* stream) {

@@ -5,9 +5,9 @@ Replaces the JAX package's ops/pallas/rnea.py `_kernel` (both RNEA sweeps of
 a scenario batch in one launch, with the gravity and damping flags). JAX
 takes its VJP from XLA (reverse mode of the scalar path, `_scalar_vjp`);
 here it is a kernel too: the RNEA and one reverse sweep of it give q̄ =
-(∂τ/∂q)ᵀ ḡ, q̄d = (∂τ/∂qd)ᵀ ḡ and q̄dd = M(q) ḡ at once, on the
-instantiation `kernel_variant` picks (a serial chain of a built shape in
-registers, else the generic 16- or 32-link build).
+(∂τ/∂q)ᵀ ḡ, q̄d = (∂τ/∂qd)ᵀ ḡ and q̄dd = M(q) ḡ at once. Both kernels run
+on the instantiation `kernel_variant` picks (a serial chain of a built
+shape in registers, else the generic 16- or 32-link build).
 
 Layout: batch-major [B, D] for every operand, as the model API holds them;
 the kernels read each scenario's row in place (csrc/rnea.cu says why no
@@ -36,13 +36,12 @@ from .rollout import (
     MAX_LINKS,
     SERIAL_SHAPES,
     TREE_CTYPES,
-    VARIANTS,
     StepFlags,
     _check_variants,
     check_constant_robot,
     check_same,
-    kernel_variant,
     tree_struct,
+    variant_code,
 )
 
 
@@ -103,30 +102,33 @@ def _configure(lib: ctypes.CDLL) -> None:
         raise RuntimeError(f"csrc/rnea.cu layout {tuple(sizes[:3])} != Python's {expect}")
     _check_variants(sizes, 3, "csrc/rnea.cu")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for name, lead, n in (("rnea_fwd", [], 5), ("rnea_bwd", [i], 8)):
+    for name, n in (("rnea_fwd", 5), ("rnea_bwd", 8)):
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{sfx}")
-            fn.argtypes = lead + [p] * n + [i64, p]
+            fn.argtypes = [i] + [p] * n + [i64, p]
             fn.restype = ctypes.c_int
 
 
-def _launch(name, robot, flags, ins, outs, lead=()):
-    for n, x in ins:
-        _check_cuda(x, n)
-    tree = tree_struct(robot, flags)
+def _launch(name, args, dev):
+    lib = build.load("rnea", _configure)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _rnea_launch(kernel, robot, flags, ins, outs):
+    """Launch `kernel` ("rnea_fwd" or "rnea_bwd") on the build
+    `kernel_variant` picks for the robot: the entry takes that build's code,
+    the tree, the operands' and the outputs' pointers and B. Returns whether
+    it launched (not for B = 0)."""
     B = ins[0][1].shape[0]
     if B == 0:
         return False
-    lib = build.load("rnea", _configure)
-    dev = ins[0][1].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"{name}_{_suffix(robot.dtype)}")(
-            *lead, ctypes.byref(tree), *(x.data_ptr() for _, x in ins),
-            *(y.data_ptr() for y in outs), B, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    args = (variant_code(robot), ctypes.byref(tree_struct(robot, flags)),
+            *(x.data_ptr() for _, x in ins), *(y.data_ptr() for y in outs), B)
+    _launch(f"{kernel}_{_suffix(robot.dtype)}", args, ins[0][1].device)
     return True
 
 
@@ -137,8 +139,11 @@ def rnea_fwd(robot: RobotStruct, q, qd, qdd, use_damping=True, include_gravity=T
     _check_rnea(robot, ins)
     if q.device.type == "cpu":
         return rnea_fwd_reference(robot, q, qd, qdd, use_damping, include_gravity, gravity)
+    for n, x in ins:
+        _check_cuda(x, n)
     tau = torch.empty_like(q)
-    if _launch("rnea_fwd", robot, StepFlags(0.0, use_damping, include_gravity, gravity), ins, (tau,)):
+    if _rnea_launch("rnea_fwd", robot, StepFlags(0.0, use_damping, include_gravity, gravity), ins,
+                    (tau,)):
         rnea_fwd.launches += 1
     return tau
 
@@ -155,10 +160,11 @@ def rnea_bwd(robot: RobotStruct, q, qd, qdd, g, use_damping=True, include_gravit
     check_unit_axes(robot, range(1, robot.n_links), "rnea_bwd")
     if q.device.type == "cpu":
         return rnea_bwd_reference(robot, q, qd, qdd, g, use_damping, include_gravity, gravity)
+    for n, x in ins:
+        _check_cuda(x, n)
     outs = (torch.empty_like(q), torch.empty_like(q), torch.empty_like(q))
-    variant = (VARIANTS.index(kernel_variant(robot)),)
-    if _launch("rnea_bwd", robot, StepFlags(0.0, use_damping, include_gravity, gravity), ins, outs,
-               variant):
+    if _rnea_launch("rnea_bwd", robot, StepFlags(0.0, use_damping, include_gravity, gravity), ins,
+                    outs):
         rnea_bwd.launches += 1
     return outs
 

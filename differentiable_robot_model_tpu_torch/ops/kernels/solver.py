@@ -64,6 +64,7 @@ from .rollout import (
     pull_stage,
     replay_reference,
     tree_struct,
+    variant_code,
 )
 
 _B1 = 0.9
@@ -372,7 +373,7 @@ def _configure_dyn(lib: ctypes.CDLL) -> None:
     _check_variants(sizes, 4, "csrc/dyn_solve.cu")
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in ("dyn_prologue_f32", "dyn_prologue_f64"):
-        getattr(lib, fn).argtypes = [p] * 6 + [i, i, ctypes.c_int64, p]
+        getattr(lib, fn).argtypes = [i] + [p] * 6 + [i, i, ctypes.c_int64, p]
         getattr(lib, fn).restype = ctypes.c_int
     lib.dyn_solve_f32.argtypes = [i] + [p] * 20 + [ctypes.c_int64, p]
     lib.dyn_solve_f32.restype = ctypes.c_int
@@ -404,6 +405,22 @@ def dyn_prologue_reference(robot: RobotStruct, q0T, init_tauT, horizon: int,
     return tau_refT, H0, ldl_solve_scalar(H0, dtau0.transpose(0, 1)).transpose(0, 1)
 
 
+def _prologue_launch(robot, q0T, init_tauT, horizon, precondition, outs):
+    """Launch the prologue on the build `kernel_variant` picks for the robot:
+    the entry takes that build's code, the tree, the pointers of q0T,
+    init_tauT (NULL for None), tau_refT, H0 (NULL without `precondition`)
+    and aT0, then H, the `precondition` flag and B."""
+    tau_refT, H0, aT0 = outs
+    _launch_dyn(
+        f"dyn_prologue_{_suffix(q0T.dtype)}",
+        (variant_code(robot), ctypes.byref(tree_struct(robot, StepFlags())), q0T.data_ptr(),
+         None if init_tauT is None else init_tauT.data_ptr(), tau_refT.data_ptr(),
+         None if H0 is None else H0.data_ptr(), aT0.data_ptr(), horizon, int(precondition),
+         q0T.shape[1]),
+        q0T.device,
+    )
+
+
 def dyn_prologue(robot: RobotStruct, q0T, init_tauT, horizon: int, precondition: bool = True):
     """The dynamic solve's prologue in one launch: per scenario the gravity
     torques at q0 (tau_refT [D, B]), the mass matrix H0 [D, D, B] (with
@@ -424,19 +441,11 @@ def dyn_prologue(robot: RobotStruct, q0T, init_tauT, horizon: int, precondition:
         return dyn_prologue_reference(robot, q0T, init_tauT, horizon, precondition)
     for name, x in named:
         _check_cuda(x, name)
-    tree = tree_struct(robot, StepFlags())
     new = lambda *shape: torch.empty(shape, dtype=q0T.dtype, device=q0T.device)
     tau_refT, aT0 = new(D, B), new(horizon, D, B)
     H0 = new(D, D, B) if precondition else None
     if B:
-        _launch_dyn(
-            f"dyn_prologue_{_suffix(q0T.dtype)}",
-            (ctypes.byref(tree), q0T.data_ptr(),
-             None if init_tauT is None else init_tauT.data_ptr(),
-             tau_refT.data_ptr(), None if H0 is None else H0.data_ptr(), aT0.data_ptr(),
-             horizon, int(precondition), B),
-            q0T.device,
-        )
+        _prologue_launch(robot, q0T, init_tauT, horizon, precondition, (tau_refT, H0, aT0))
         dyn_prologue.launches += 1
     return tau_refT, H0, aT0
 
@@ -563,7 +572,7 @@ def dynamic_adam_solve(
         **{k: c[k] for k in ("cgoal_w", "ceff_w", "gpe_w", "geff_w", "b1", "b2", "omb1",
                              "omb2", "eps", "eps_root")},
     )
-    variant = VARIANTS.index(kernel_variant(robot))
+    variant = variant_code(robot)
     dev = q0T.device
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     tau_out, a, m, v, tau_s, qs, qds, jtg = (new(H, D, B) for _ in range(8))
@@ -744,7 +753,7 @@ def mppi_solve(
         ptrs = (q0T, qd0T, tau_refT, goalT)
         _launch_mppi(
             f"mppi_solve_{_suffix(dtype)}",
-            (VARIANTS.index(kernel_variant(robot)), ctypes.byref(tree), ctypes.byref(ch),
+            (variant_code(robot), ctypes.byref(tree), ctypes.byref(ch),
              ctypes.byref(params),
              *(x.data_ptr() for x in ptrs), None if H0 is None else H0.data_ptr(),
              aT0.data_ptr(), tau.data_ptr(), costs.data_ptr(), B),

@@ -1,7 +1,7 @@
-"""Time K3 `kin_solve`, K9 `dyn_solve`, K10 `mppi_solve`, K5
-`dyn_rollout_fwd`, K6 `dyn_rollout_bwd`, K7 `dyn_rollout_ee_fwd`, K8
-`dyn_rollout_ee_bwd` and `rnea_bwd` of one or two checkouts of the port on
-one CUDA card.
+"""Time K3 `kin_solve`, K4 `rnea_fwd`, `rnea_bwd`, the `dyn_prologue`
+kernel, K9 `dyn_solve`, K10 `mppi_solve`, K5 `dyn_rollout_fwd`, K6
+`dyn_rollout_bwd`, K7 `dyn_rollout_ee_fwd` and K8 `dyn_rollout_ee_bwd` of
+one or two checkouts of the port on one CUDA card.
 
     python3 tools/time_solves.py [--check] [--detail]   # this checkout
     python3 tools/time_solves.py --ab DIR [--check]     # and the checkout at DIR
@@ -9,8 +9,13 @@ one CUDA card.
 Each measurement runs in a process of its own that imports the package of
 one checkout and builds that checkout's kernels there (nvcc, into its
 `build/kernels/`): K3 at iiwa B=4096, H=50, 10 iterations, lr 0.05, eps
-1.0, warm-started (the kinematic MPC main path's shape), `rnea_bwd` at iiwa
-B=65536 float32 (the model API's), K9 at iiwa B=4096, H=50, 10 iterations
+1.0, warm-started (the kinematic MPC main path's shape), K4 and `rnea_bwd`
+at iiwa B=65536 float32 with the model API's ID and NLE calls that launch
+K4 (the model API's shape; these three also with the card held busy while
+the host queues each call, `_card_ms`, as below), the prologue
+warm-started at iiwa H=50, B=4096 and B=256 (the dynamic and MPPI replans'
+shapes; also by `_card_ms`), K9 at iiwa B=4096, H=50,
+10 iterations
 (the dynamic MPC main path's shape), K10 at iiwa B=256, K=128, H=50, 10
 iterations (the MPPI main path's), K5 at iiwa H=50, B=4096 (the
 differentiated `dynamic_rollout`), K7 at every shape a path launches it
@@ -25,20 +30,25 @@ host queues each call, which times the card's work alone, and by the
 host's wall time per call), and one warm replan of each MPC path at its main shape (the
 kinematic `fused` engine, the dynamic and MPPI `fused` and `kernel`
 engines), the median of 20 the same way. Each prints ptxas's report for
-K3's, `rnea_bwd`'s, K5/K7's, K6/K8's, K9's and K10's kernels (registers,
+K3's, K4's, `rnea_bwd`'s, K5/K7's, K6/K8's, the prologue's, K9's and K10's
+kernels (registers,
 stack frame, spills) and one JSON line. With `--ab DIR` the checkouts run in turns: DIR's, this one's,
 this one's, DIR's, then a summary line of the medians. With `--check`,
-this checkout's K3, K9, K10, K5, K7, K6, K8 and `rnea_bwd` are first held
+this checkout's K3, K9, K10, K5, K7, K6, K8, K4, `rnea_bwd` and the
+prologue are first held
 to their plain versions at small shapes (K3: B=64, H=10, 3 iterations,
 float32; K9: B=64, H=10, 5 iterations, the effort box off and on; K10:
 B=16, K=64, H=10, 3 iterations, float64; K5 and K7: H=10 at B=64 and at
 13 past the least batch that runs a serial chain one thread a scenario
 (8,461 on 132 SMs), float32 and float64; K6 and K8: B=64, H=10, float64, every cotangent at once;
-`rnea_bwd`: B=256, float64), and the run fails if they disagree (K3
+K4 and `rnea_bwd`: B=256, float64; the prologue: B=64 and B=4096, H=10,
+warm-started, preconditioned and not, float64), and the run fails if they
+disagree (K3
 actions within 2e-3 and costs within 1e-3 relative, K9 torques within
 5e-3, float32 K5/K7 qs, qds and ps within 5e-4, 2e-3 and 5e-5 or no
 farther from float64 than twice the plain float32 (median and max over the
-scenarios), K10, float64 K5, K7, K6, K8 and `rnea_bwd` within 1e-9 of the
+scenarios), K10, float64 K5, K7, K6, K8, K4, `rnea_bwd` and the prologue
+within 1e-9 of the
 largest entry). With `--detail`, this checkout's K3, K5, K7 and K10 are
 also timed alone at B=1 (their dependent chains), K9 on iiwa with the
 generic 16-link build in place of the serial one and on the 2-link robot,
@@ -134,7 +144,8 @@ def _ptxas(report, kernel):
 
 
 def measure(root: Path, check: bool, detail: bool = False) -> dict:
-    """The times of one checkout's K3, rnea_bwd, K9, K10, K6, K8, K5 and K7
+    """The times of one checkout's K3, K4, rnea_bwd, the prologue, K9, K10,
+    K6, K8, K5 and K7
     (this process imports the package under `root`)."""
     sys.path.insert(0, str(root))
     import numpy as np
@@ -173,8 +184,9 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
                               goal_weight=GOAL_W, effort_weight=EFFORT_W)
     out = {"root": str(root), "card": torch.cuda.get_device_name(0), "build_s": secs,
            "ptxas": _ptxas(build.compiler_report("kin_solve"), "kin_solve_kernel")
-           + _ptxas(build.compiler_report("rnea"), "rnea_bwd_kernel")
+           + _ptxas(build.compiler_report("rnea"), "rnea_")
            + _ptxas(build.compiler_report("dyn_solve"), "dyn_solve_")
+           + _ptxas(build.compiler_report("dyn_solve"), "prologue")
            + _ptxas(build.compiler_report("mppi_solve"), "mppi_kernel")
            + [line for kernel in ("bwd_kernel", "replay_kernel", "adjoint_kernel")
               for line in _ptxas(build.compiler_report("dyn_rollout"), kernel)]
@@ -199,6 +211,26 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
         out["check_rnea_bwd_f64"] = e
         if not e <= 1e-9:
             raise AssertionError(f"float64 rnea_bwd disagrees with its plain version: {e}")
+        e = ((kn.rnea_fwd(s64, *x[:3]) - kn.rnea_fwd_reference(s64, *x[:3])).abs().max()
+             / kn.rnea_fwd_reference(s64, *x[:3]).abs().max()).item()
+        out["check_rnea_fwd_f64"] = e
+        if not e <= 1e-9:
+            raise AssertionError(f"float64 K4 disagrees with its plain version: {e}")
+        # the prologue on iiwa (its serial build runs a group of lanes a
+        # scenario at every batch; the generic builds' one thread a scenario
+        # is checked by chip_smoke.py) at B=64 and 4096, H=10, warm started,
+        # preconditioned and not
+        for n in (64, B):
+            q0T = problem(n, 0.3)[0].double()
+            init = torch.randn((10, D, n), generator=gen, device=dev, dtype=torch.float64) * 5
+            for pre in (True, False):
+                k = ks.dyn_prologue(s64, q0T, init, 10, pre)
+                r = ks.dyn_prologue_reference(s64, q0T, init, 10, pre)
+                e = max(((a - b).abs().max() / b.abs().max()).item()
+                        for a, b in zip(k, r) if b is not None)
+                out[f"check_prologue_f64_b{n}_pre{int(pre)}"] = e
+                if not e <= 1e-9:
+                    raise AssertionError(f"float64 prologue disagrees with its plain version: {e}")
         q0T, qd0T, goalT = problem(64, 0.3)
         tr, H0, a0 = ks.dyn_prologue(s, q0T, None, 10)
         for effort in (False, True):
@@ -247,6 +279,15 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     x = [torch.rand((API_B, D), generator=gen, device=dev) * 2 - 1 for _ in range(4)]
     out["rnea_bwd_ms"] = _sync_ms(torch, lambda: kn.rnea_bwd(s, *x))
+    # K4, and the model API's ID and NLE calls that launch it; each also with
+    # the card held busy while the host queues the call (`_card_ms`), which
+    # times the card's work alone where the wrapper's host time is longer
+    q, qd, qdd = x[:3]
+    for key, call in (("rnea_fwd", lambda: kn.rnea_fwd(s, q, qd, qdd)),
+                      ("api_id", lambda: model.compute_inverse_dynamics(q, qd, qdd)),
+                      ("api_nle", lambda: model.compute_non_linear_effects(q, qd))):
+        out[f"{key}_ms"] = _sync_ms(torch, call)
+        out[f"{key}_card_ms"] = _card_ms(torch, call)
     if detail:
         one = [t[..., :1].contiguous() for t in (q0T, goalT, a_warm)]
         out["kin_solve_b1_ms"] = _sync_ms(torch, lambda: kin(*one))
@@ -254,6 +295,12 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
     tr, H0, a0 = ks.dyn_prologue(s, q0T, None, H)
     tau = (tr[None] + torch.randn((H, D, B), generator=torch.Generator(device=dev).manual_seed(4),
                                   device=dev)).contiguous()
+    # the prologue warm-started, at the dynamic replan's shape and the MPPI one's
+    for n in (B, MPPI_B):
+        qn, init = q0T[:, :n].contiguous(), tau[:, :, :n].contiguous()
+        call = lambda: ks.dyn_prologue(s, qn, init, H)
+        out[f"dyn_prologue_b{n}_ms"] = _sync_ms(torch, call)
+        out[f"dyn_prologue_b{n}_card_ms"] = _card_ms(torch, call)
     args = (s, q0T, qd0T, goalT, tr, H0, a0, ee)
     out["dyn_solve_ms"] = _sync_ms(torch, lambda: ks.dynamic_adam_solve(*args, n_iters=ITERS, **kw))
     out.update(_time_forwards(torch, kr, s, ee, dev, detail))
@@ -436,7 +483,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", type=Path, help="a second checkout, timed in turns with this one")
     ap.add_argument("--check", action="store_true", help="first hold this checkout's K3, K9, "
-                    "K10, K5, K7, K6, K8 and rnea_bwd to their plain versions at small shapes")
+                    "K10, K5, K7, K6, K8, K4, rnea_bwd and the prologue to their plain versions "
+                    "at small shapes")
     ap.add_argument("--detail", action="store_true", help="also time this checkout's K3, K5, "
                     "K7 and K10 at B=1, K9 on iiwa's generic build and on the 2-link robot, and "
                     "count the SASS instructions of each K3, K5/K7, rnea_bwd, K9, K10 and "
@@ -464,7 +512,11 @@ def main() -> int:
             sys.stderr.write(p.stderr)
             return p.returncode
         runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
-    keys = ("kin_solve_ms", "rnea_bwd_ms", "dyn_solve_ms", "mppi_solve_ms", "dyn_rollout_fwd_ms",
+    keys = ("kin_solve_ms", *(f"{k}{t}" for k in ("rnea_fwd", "api_id", "api_nle")
+                              for t in ("_ms", "_card_ms")), "rnea_bwd_ms",
+            *(f"dyn_prologue_b{n}{t}" for n in (B, MPPI_B) for t in ("_ms", "_card_ms")),
+            "dyn_solve_ms", "mppi_solve_ms",
+            "dyn_rollout_fwd_ms",
             *(f"dyn_rollout_ee_fwd{'' if (h, b) == (H, B) else f'_h{h}_b{b}'}_ms" for h, b in K7_SHAPES),
             *(f"dyn_rollout_ee_fwd_h1_b{b}_{k}" for _, b in K7_SHAPES[1:3] for k in ("card_ms", "host_us")),
             "dyn_rollout_bwd_ms", "dyn_rollout_ee_bwd_ms", "k6_replay_ms", "k6_adjoint_ms",
