@@ -23,10 +23,15 @@
 #define DRM_REVOLUTE 1
 #define DRM_PRISMATIC 2
 
+// ChainLink::axis: k + 1 where the axis a is exactly +e_k, -(k + 1) where it
+// is exactly -e_k, DRM_AXIS_GENERAL for any other axis (read by K1/K2 only).
+#define DRM_AXIS_GENERAL 0
+
 template <typename T>
 struct ChainLink {
   int type;  // DRM_FIXED / DRM_REVOLUTE / DRM_PRISMATIC
   int dof;   // dof index of the joint (unused for fixed links)
+  int axis;  // the axis's kind, as above
   T F[9];    // fixed rpy rotation, row major
   T a[3];    // joint axis in the joint frame
   T Fa[3];   // F @ a: the axis after the fixed rotation

@@ -9,10 +9,11 @@ revolute joint, g.z_l for a prismatic one).
 Bound on the H100: per configuration the function needs one sincos and a
 few dozen FP32 operations per revolute link once the robot's zero and unit
 constants are folded, and moves (D + 3) * 4 bytes (K1) or (2 D + 3) * 4
-bytes (K2), so the bytes bound it, and at small M the launch latency. Each
-configuration is one thread, which does more than that: the constants are
-not folded, and K2 replays the sweep instead of storing each joint's axis
-and origin (csrc/fk.cu). The robot's
+bytes (K2), so the bytes bound it, and at small M the launch latency. The
+kernels sweep the chain unrolled over a compile-time bound of 8 or 16
+links; a joint whose axis is exactly +-e_k (each link's `axes` kind,
+computed here) turns by a planar rotation, and K2 keeps each revolute
+joint's record in registers and sweeps once (csrc/fk.cu). The robot's
 constants reach the kernel as one by-value `Chain` argument (built here by
 `chain_constants`), so one build serves every robot; the TPU kernels bake
 them in as immediates instead.
@@ -29,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ...models.structs import JOINT_FIXED, JOINT_PRISMATIC, JOINT_REVOLUTE, RobotStruct
+from ...models.structs import JOINT_FIXED, JOINT_PRISMATIC, JOINT_REVOLUTE, RobotStruct, _axis_codes_of
 from . import build
 
 # Must match DRM_MAX_CHAIN / DRM_MAX_DOF in csrc/chain.cuh (checked at load).
@@ -51,12 +52,13 @@ def chain_to(robot: RobotStruct, link_idx: int) -> list:
 
 @dataclasses.dataclass(frozen=True)
 class ChainConsts:
-    """Per chain link: joint type, dof, F (fixed rpy rotation, row major),
-    axis a, F@a and translation t, each value rounded to the struct's dtype
-    (held as Python floats)."""
+    """Per chain link: joint type, dof, axis kind (`axis_kind`), F (fixed
+    rpy rotation, row major), axis a, F@a and translation t, each value
+    rounded to the struct's dtype (held as Python floats)."""
 
     types: tuple
     dofs: tuple
+    axes: tuple
     F: tuple
     a: tuple
     Fa: tuple
@@ -122,6 +124,18 @@ def fixed_rotation(rpy, rnd) -> np.ndarray:
     )
 
 
+AXIS_GENERAL = 0  # csrc/chain.cuh DRM_AXIS_GENERAL
+
+
+def axis_kind(a) -> int:
+    """csrc/chain.cuh `ChainLink::axis` of the axis a (as rounded to the
+    struct's dtype): k + 1 where a is exactly +e_k, -(k + 1) where it is
+    exactly -e_k, AXIS_GENERAL otherwise. K1/K2 turn a revolute joint of a
+    coordinate axis by a planar rotation."""
+    code = _axis_codes_of(np.asarray(a, np.float64)[None])[0]
+    return AXIS_GENERAL if code is None else code[1] * (code[0] + 1)
+
+
 def _chain_constants(robot: RobotStruct, link_idx: int) -> ChainConsts:
     chain = chain_to(robot, link_idx)
     if len(chain) > MAX_CHAIN:
@@ -143,6 +157,7 @@ def _chain_constants(robot: RobotStruct, link_idx: int) -> ChainConsts:
     return ChainConsts(
         types=tuple(robot.joint_types[l] for l in chain),
         dofs=tuple(link_dof.get(l, -1) for l in chain),
+        axes=tuple(axis_kind(a) for a in a_all),
         F=tuple(F_all),
         a=tuple(a_all),
         Fa=tuple(Fa_all),
@@ -232,15 +247,24 @@ def fk_position_dof_major_vjp_reference(
     robot: RobotStruct, qM: torch.Tensor, g: torch.Tensor, link_idx: int
 ):
     """Plain version of K2: the VJP dq [D, M] of K1 at qM with cotangent
-    g [3, M], by the geometric-Jacobian identity after a first sweep for p."""
+    g [3, M], by the geometric-Jacobian identity, in one sweep as K2 makes
+    it: each revolute joint keeps w = g x z and b = o.w, and its row
+    g.(z x (p - o)) = p.w - b is formed once p is known; a prismatic
+    joint's row is g.z. Rows of dofs off the chain are zero."""
     consts = chain_constants(robot, link_idx)
-    p = chain_sweep(consts, lambda d: qM[d], qM[0])
     rows = [torch.zeros_like(qM[0]) for _ in range(qM.shape[0])]
+    records = []
 
     def record(jt, dof, z, o):
-        rows[dof] = joint_vjp(jt, z, o, p, g)
+        if jt == JOINT_REVOLUTE:
+            w = (g[1] * z[2] - g[2] * z[1], g[2] * z[0] - g[0] * z[2], g[0] * z[1] - g[1] * z[0])
+            records.append((dof, w, o[0] * w[0] + o[1] * w[1] + o[2] * w[2]))
+        else:
+            rows[dof] = g[0] * z[0] + g[1] * z[1] + g[2] * z[2]
 
-    chain_sweep(consts, lambda d: qM[d], qM[0], record)
+    p = chain_sweep(consts, lambda d: qM[d], qM[0], record)
+    for dof, w, b in records:
+        rows[dof] = p[0] * w[0] + p[1] * w[1] + p[2] * w[2] - b
     return torch.stack(rows)
 
 
@@ -252,7 +276,7 @@ def fk_position_dof_major_vjp_reference(
 def _chain_ctypes(ctype):
     class Link(ctypes.Structure):
         _fields_ = [
-            ("type", ctypes.c_int), ("dof", ctypes.c_int), ("F", ctype * 9),
+            ("type", ctypes.c_int), ("dof", ctypes.c_int), ("axis", ctypes.c_int), ("F", ctype * 9),
             ("a", ctype * 3), ("Fa", ctype * 3), ("t", ctype * 3),
         ]
 
@@ -280,7 +304,7 @@ def chain_struct(robot: RobotStruct, link_idx: int):
         ch.n, ch.D = len(consts.types), consts.n_dofs
         for k, jt in enumerate(consts.types):
             L = ch.link[k]
-            L.type, L.dof = jt, max(consts.dofs[k], 0)
+            L.type, L.dof, L.axis = jt, max(consts.dofs[k], 0), consts.axes[k]
             L.F[:], L.a[:], L.Fa[:], L.t[:] = consts.F[k], consts.a[k], consts.Fa[k], consts.t[k]
             if jt != JOINT_FIXED:
                 ch.dof_mask |= 1 << consts.dofs[k]
@@ -358,11 +382,14 @@ fk_fwd.launches = 0
 
 
 def fk_bwd(robot: RobotStruct, qM: torch.Tensor, g: torch.Tensor, link_idx: int) -> torch.Tensor:
-    """K2: dq [D, M], the VJP of K1 at qM with cotangent g [3, M]."""
+    """K2: dq [D, M], the VJP of K1 at qM with cotangent g [3, M]. Raises
+    for a revolute axis on the chain that is not of unit length (the
+    identity it uses holds only for unit axes, ROADMAP W6)."""
     _check_operand(robot, qM, robot.n_dofs, "qM")
     _check_operand(robot, g, 3, "g")
     if g.shape[1] != qM.shape[1]:
         raise ValueError(f"g has {g.shape[1]} columns, qM {qM.shape[1]}")
+    check_unit_axes(robot, chain_to(robot, link_idx), "fk_bwd")
     if qM.device.type == "cpu":
         return fk_position_dof_major_vjp_reference(robot, qM, g, link_idx)
     _check_cuda(qM, "qM")

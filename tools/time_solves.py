@@ -1,14 +1,17 @@
-"""Time K3 `kin_solve`, K4 `rnea_fwd`, `rnea_bwd`, the `dyn_prologue`
-kernel, K9 `dyn_solve`, K10 `mppi_solve`, K5 `dyn_rollout_fwd`, K6
-`dyn_rollout_bwd`, K7 `dyn_rollout_ee_fwd` and K8 `dyn_rollout_ee_bwd` of
-one or two checkouts of the port on one CUDA card.
+"""Time K1 `fk_fwd`, K2 `fk_bwd`, K3 `kin_solve`, K4 `rnea_fwd`,
+`rnea_bwd`, the `dyn_prologue` kernel, K9 `dyn_solve`, K10 `mppi_solve`,
+K5 `dyn_rollout_fwd`, K6 `dyn_rollout_bwd`, K7 `dyn_rollout_ee_fwd` and K8
+`dyn_rollout_ee_bwd` of one or two checkouts of the port on one CUDA card.
 
     python3 tools/time_solves.py [--check] [--detail]   # this checkout
     python3 tools/time_solves.py --ab DIR [--check]     # and the checkout at DIR
 
 Each measurement runs in a process of its own that imports the package of
 one checkout and builds that checkout's kernels there (nvcc, into its
-`build/kernels/`): K3 at iiwa B=4096, H=50, 10 iterations, lr 0.05, eps
+`build/kernels/`): K1 and K2 at iiwa M = 204,800 (the kinematic `kernel`
+engine's M = B H) and M = 4096 (the kinematic replan's metrics call),
+each by events, with the card held busy (`_card_ms`, as below) and by the
+host's µs a call, K3 at iiwa B=4096, H=50, 10 iterations, lr 0.05, eps
 1.0, warm-started (the kinematic MPC main path's shape), K4 and `rnea_bwd`
 at iiwa B=65536 float32 with the model API's ID and NLE calls that launch
 K4 (the model API's shape; these three also with the card held busy while
@@ -29,21 +32,25 @@ them, K6's and K8's two phases alone (`dyn_rollout_replay`,
 host queues each call, which times the card's work alone, and by the
 host's wall time per call), and one warm replan of each MPC path at its main shape (the
 kinematic `fused` engine, the dynamic and MPPI `fused` and `kernel`
-engines), the median of 20 the same way. Each prints ptxas's report for
-K3's, K4's, `rnea_bwd`'s, K5/K7's, K6/K8's, the prologue's, K9's and K10's
-kernels (registers,
+engines), the median of 20 the same way (also the kinematic `kernel` engine,
+which launches K1 12 and K2 10 times a replan). Each prints ptxas's
+report for K1's, K2's, K3's, K4's, `rnea_bwd`'s, K5/K7's, K6/K8's, the
+prologue's, K9's and K10's kernels (registers,
 stack frame, spills) and one JSON line. With `--ab DIR` the checkouts run in turns: DIR's, this one's,
 this one's, DIR's, then a summary line of the medians. With `--check`,
-this checkout's K3, K9, K10, K5, K7, K6, K8, K4, `rnea_bwd` and the
-prologue are first held
-to their plain versions at small shapes (K3: B=64, H=10, 3 iterations,
+this checkout's K1, K2, K3, K9, K10, K5, K7, K6, K8, K4, `rnea_bwd`
+and the prologue are first held
+to their plain versions at small shapes (K1 and K2: M = 4101 on iiwa
+and on kuka_iiwa7_allegro's thumb chain (13 links), float32 and float64,
+the outputs NaN-prefilled; K3: B=64, H=10, 3 iterations,
 float32; K9: B=64, H=10, 5 iterations, the effort box off and on; K10:
 B=16, K=64, H=10, 3 iterations, float64; K5 and K7: H=10 at B=64 and at
 13 past the least batch that runs a serial chain one thread a scenario
 (8,461 on 132 SMs), float32 and float64; K6 and K8: B=64, H=10, float64, every cotangent at once;
 K4 and `rnea_bwd`: B=256, float64; the prologue: B=64 and B=4096, H=10,
 warm-started, preconditioned and not, float64), and the run fails if they
-disagree (K3
+disagree (K1 within 2e-6, K2 within 1e-5 of the largest entry in
+float32, both within 1e-12 in float64; K3
 actions within 2e-3 and costs within 1e-3 relative, K9 torques within
 5e-3, float32 K5/K7 qs, qds and ps within 5e-4, 2e-3 and 5e-5 or no
 farther from float64 than twice the plain float32 (median and max over the
@@ -80,6 +87,8 @@ REPS = 20
 DEVICE = "cuda"
 # (H, B) of each shape a path launches K7 at; K5 runs at (H, B)
 K7_SHAPES = ((50, 4096), (1, 4096), (1, 256), (50, 32768))
+# M of each K1/K2 shape: the kinematic `kernel` engine's B H, the metrics call's B
+FK_MS = (B * H, B)
 QS_TOL, QDS_TOL, PS_TOL, F64_SLACK = 5e-4, 2e-3, 5e-5, 2.0
 
 
@@ -153,6 +162,7 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
 
     import differentiable_robot_model_tpu_torch as drt
     from differentiable_robot_model_tpu_torch.ops.kernels import build
+    from differentiable_robot_model_tpu_torch.ops.kernels import fk as kfk
     from differentiable_robot_model_tpu_torch.ops.kernels import rnea as kn
     from differentiable_robot_model_tpu_torch.ops.kernels import rollout as kr
     from differentiable_robot_model_tpu_torch.ops.kernels import solver as ks
@@ -162,7 +172,7 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
     if pkg.parent != root.resolve():
         raise RuntimeError(f"imported {pkg}, not the package under {root}")
     dev = torch.device(DEVICE, 0)
-    secs = build.build(("kin_solve", "rnea", "dyn_rollout", "dyn_solve", "mppi_solve"))
+    secs = build.build(("fk", "kin_solve", "rnea", "dyn_rollout", "dyn_solve", "mppi_solve"))
     model = drt.DifferentiableKUKAiiwa(device=dev)
     s = model.struct
     ee = s.link_index("iiwa_link_ee")
@@ -183,7 +193,8 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
     mkw = lambda K, its: dict(n_iters=its, n_samples=K, dt=DT, temperature=0.01, noise_sigma=5.0,
                               goal_weight=GOAL_W, effort_weight=EFFORT_W)
     out = {"root": str(root), "card": torch.cuda.get_device_name(0), "build_s": secs,
-           "ptxas": _ptxas(build.compiler_report("kin_solve"), "kin_solve_kernel")
+           "ptxas": _ptxas(build.compiler_report("fk"), "fk_")
+           + _ptxas(build.compiler_report("kin_solve"), "kin_solve_kernel")
            + _ptxas(build.compiler_report("rnea"), "rnea_")
            + _ptxas(build.compiler_report("dyn_solve"), "dyn_solve_")
            + _ptxas(build.compiler_report("dyn_solve"), "prologue")
@@ -193,6 +204,7 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
            + _ptxas(build.compiler_report("dyn_rollout"), "fwd_")}
     kkw = dict(lr=KIN_LR, goal_weight=KIN_GOAL_W, eps=KIN_EPS)
     if check:
+        out.update(_check_fk(torch, drt, kfk, s, ee, dev))
         q0T, _, goalT = problem(64, 0.3)
         a0 = 0.01 * torch.randn((10, D, 64), generator=torch.Generator(device=dev).manual_seed(3),
                                 device=dev)
@@ -269,6 +281,17 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
             out[f"check_{tag}_f64"] = e
             if not e <= 1e-9:
                 raise AssertionError(f"float64 {tag.upper()} disagrees with its plain version: {e}")
+    # K1 and K2 at each of FK_MS
+    gen = torch.Generator(device=dev).manual_seed(1)
+    qM = (torch.rand((D, max(FK_MS)), generator=gen, device=dev) * 5.0 - 2.5).contiguous()
+    gM = torch.randn((3, max(FK_MS)), generator=gen, device=dev).contiguous()
+    for M in FK_MS:
+        q, g = qM[:, :M].contiguous(), gM[:, :M].contiguous()
+        for name, call in (("fk_fwd", lambda: kfk.fk_fwd(s, q, ee)),
+                           ("fk_bwd", lambda: kfk.fk_bwd(s, q, g, ee))):
+            out[f"{name}_m{M}_ms"] = _sync_ms(torch, call)
+            out[f"{name}_m{M}_card_ms"] = _card_ms(torch, call)
+            out[f"{name}_m{M}_host_us"] = _host_us(torch, call)
     # K3 warm-started as the kinematic replan runs it, and rnea_bwd
     q0T, _, goalT = problem(B, 0.3)
     a, _ = ks.kinematic_adam_solve(s, q0T, goalT, torch.zeros((H, D, B), device=dev), ee,
@@ -347,6 +370,35 @@ def measure(root: Path, check: bool, detail: bool = False) -> dict:
     return out
 
 
+def _check_fk(torch, drt, kfk, s, ee, dev):
+    """K1 and K2 against their plain versions at M = 4101 (a ragged block)
+    on iiwa and on kuka_iiwa7_allegro's thumb chain (13 links), float32
+    and float64, with their outputs NaN-prefilled."""
+    out = {}
+    thumb = drt.DifferentiableKukaIiwaAllegro(device=dev).struct
+    empty = torch.empty
+    for tag, rob, link in (("iiwa", s, ee), ("allegro", thumb, thumb.link_index("link_15.0_tip"))):
+        gen = torch.Generator(device=dev).manual_seed(8)
+        q = torch.rand((rob.n_dofs, 4101), generator=gen, device=dev, dtype=torch.float64) * 5 - 2.5
+        g = torch.randn((3, 4101), generator=gen, device=dev, dtype=torch.float64)
+        for dtype, tol_p, tol_dq in ((torch.float32, 2e-6, 1e-5), (torch.float64, 1e-12, 1e-12)):
+            r, qx, gx = rob.to(dtype=dtype), q.to(dtype), g.to(dtype)
+            torch.empty = lambda *a, **k: empty(*a, **k).fill_(float("nan"))
+            try:
+                p, dq = kfk.fk_fwd(r, qx, link), kfk.fk_bwd(r, qx, gx, link)
+            finally:
+                torch.empty = empty
+            pr = kfk.fk_position_dof_major_reference(r, qx, link)
+            dqr = kfk.fk_position_dof_major_vjp_reference(r, qx, gx, link)
+            e = (p - pr).abs().max().item()
+            e_dq = ((dq - dqr).abs().max() / dqr.abs().max()).item()
+            bits = "f32" if dtype == torch.float32 else "f64"
+            out[f"check_k1_{tag}_{bits}"], out[f"check_k2_{tag}_{bits}"] = e, e_dq
+            if not (e <= tol_p and e_dq <= tol_dq):
+                raise AssertionError(f"K1/K2 disagree with their plain versions ({tag}, {bits}): {e}, {e_dq}")
+    return out
+
+
 def _forward_inputs(torch, D, H_, B_, dev, dtype):
     """q0, qd0 [D, B] and tau [H, D, B] of K5/K7, uniform from a seed."""
     gen = torch.Generator(device=dev).manual_seed(H_ * 7919 + B_)
@@ -379,15 +431,16 @@ def _time_forwards(torch, kr, s, ee, dev, detail):
 def _time_replans(torch, s, ee, problem, mppi_q0T):
     """One warm replan of each MPC path at its main shape (the kinematic and
     dynamic paths at iiwa H=50, B=4096, 10 iterations; MPPI at B=256,
-    K=128), on the `fused` engines and on the dynamic and MPPI `kernel`
-    engines (K7 12 times a replan, K8 10 times on the dynamic one)."""
+    K=128), on the `fused` engines and on the `kernel` engines (kinematic:
+    K1 12 and K2 10 times a replan; dynamic: K7 12 and K8 10 times; MPPI:
+    K7 12 times)."""
     from differentiable_robot_model_tpu_torch.trajopt import mpc
 
     q0T, _, goalT = problem(B, 0.3)
     q0, goals = q0T.T.contiguous(), goalT.T.contiguous()
     kcfg = mpc.MPCConfig(horizon=H, iters_per_step=ITERS, lr=KIN_LR)
-    steps = {"kin_fused": (mpc.make_mpc_step_batch(s, ee, kcfg, fk_impl="fused", eps=KIN_EPS),
-                           mpc.mpc_init(s, q0, kcfg), goals)}
+    steps = {f"kin_{engine}": (mpc.make_mpc_step_batch(s, ee, kcfg, fk_impl=engine, eps=KIN_EPS),
+                               mpc.mpc_init(s, q0, kcfg), goals) for engine in ("fused", "kernel")}
     for engine in ("fused", "kernel"):
         cfg = mpc.DynamicMPCConfig(horizon=H, iters_per_step=ITERS, rollout_impl=engine)
         steps[f"dyn_{engine}"] = (mpc.make_dynamic_mpc_step_batch(s, ee, cfg),
@@ -482,8 +535,8 @@ def _sass_counts(build):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", type=Path, help="a second checkout, timed in turns with this one")
-    ap.add_argument("--check", action="store_true", help="first hold this checkout's K3, K9, "
-                    "K10, K5, K7, K6, K8, K4, rnea_bwd and the prologue to their plain versions "
+    ap.add_argument("--check", action="store_true", help="first hold this checkout's K1, K2, K3, "
+                    "K9, K10, K5, K7, K6, K8, K4, rnea_bwd and the prologue to their plain versions "
                     "at small shapes")
     ap.add_argument("--detail", action="store_true", help="also time this checkout's K3, K5, "
                     "K7 and K10 at B=1, K9 on iiwa's generic build and on the 2-link robot, and "
@@ -512,7 +565,8 @@ def main() -> int:
             sys.stderr.write(p.stderr)
             return p.returncode
         runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
-    keys = ("kin_solve_ms", *(f"{k}{t}" for k in ("rnea_fwd", "api_id", "api_nle")
+    keys = (*(f"{k}_m{m}_{t}" for k in ("fk_fwd", "fk_bwd") for m in FK_MS
+              for t in ("ms", "card_ms", "host_us")), "kin_solve_ms", *(f"{k}{t}" for k in ("rnea_fwd", "api_id", "api_nle")
                               for t in ("_ms", "_card_ms")), "rnea_bwd_ms",
             *(f"dyn_prologue_b{n}{t}" for n in (B, MPPI_B) for t in ("_ms", "_card_ms")),
             "dyn_solve_ms", "mppi_solve_ms",
@@ -521,7 +575,7 @@ def main() -> int:
             *(f"dyn_rollout_ee_fwd_h1_b{b}_{k}" for _, b in K7_SHAPES[1:3] for k in ("card_ms", "host_us")),
             "dyn_rollout_bwd_ms", "dyn_rollout_ee_bwd_ms", "k6_replay_ms", "k6_adjoint_ms",
             "k8_replay_ms", "k8_adjoint_ms", *(f"replan_{p}_ms" for p in (
-                "kin_fused", "dyn_fused", "dyn_kernel", "mppi_fused", "mppi_kernel")))
+                "kin_fused", "kin_kernel", "dyn_fused", "dyn_kernel", "mppi_fused", "mppi_kernel")))
     summary = {"card": card}
     for label, root in (("this", ROOT), ("other", a.ab)):
         mine = [r for r in runs if root is not None and Path(r["root"]) == root]
