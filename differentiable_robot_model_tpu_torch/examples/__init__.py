@@ -1,0 +1,1 @@
+"""Example scripts of the port, twins of the JAX package's `examples/`."""

@@ -82,6 +82,7 @@ from .fk import (
     chain_constants,
     chain_struct,
     chain_sweep,
+    check_unit_axes,
     fixed_rotation,
     joint_vjp,
 )
@@ -793,8 +794,12 @@ def dyn_rollout_replay(robot, q0T, qd0T, tauT, qs, qds, dt, use_damping=True,
     at once: the scratch [H, K, B] of `replay_layout(D, gqs or ps given,
     gqds given)`. With ps, gps and ee_link_idx the folded cotangent rows
     hold J^T gps, as for `dyn_rollout_ee_bwd`. For holding the kernel's
-    phase A to its plain version, and timing it."""
+    phase A to its plain version, timing it, and the iLQR dynamics
+    Jacobians (trajopt/solvers.py `make_ift_f_AB`). Raises for a revolute
+    joint whose axis is not of unit length (the rows' reverse sweeps assume
+    one)."""
     H, D, B = _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds, ps, gps))
+    check_unit_axes(robot, range(1, robot.n_links), "dyn_rollout_replay")
     if q0T.device.type == "cpu":
         return dyn_rollout_replay_reference(robot, q0T, qd0T, tauT, qs, qds, dt, use_damping,
                                             include_gravity, gravity, gqs, gqds, ps, gps,
@@ -806,7 +811,11 @@ def dyn_rollout_replay(robot, q0T, qd0T, tauT, qs, qds, dt, use_damping=True,
     scr = torch.empty((H, lay.K, B), dtype=tauT.dtype, device=tauT.device)
     if B:
         _replay_launch(tree, ch, variant, lay, ins, scr, 0, H, B, tauT.device)
+        dyn_rollout_replay.launches += 1
     return scr
+
+
+dyn_rollout_replay.launches = 0
 
 
 def _check_scratch(robot, scr, gqx, gqdx):
@@ -851,8 +860,9 @@ def dyn_rollout_bwd(robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, dt, use_damping=
     cotangents gqs on qs and gqds on qds ([H, D, B] each; either may be None,
     and then no tensor is read for it), from its saved outputs, in two
     phases a window (module docstring). Returns (gtau [H, D, B], gq0, gqd0
-    [D, B])."""
+    [D, B]). Raises for a revolute joint whose axis is not of unit length."""
     H, D, B = _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds))
+    check_unit_axes(robot, range(1, robot.n_links), "dyn_rollout_bwd")
     if q0T.device.type == "cpu":
         return dyn_rollout_bwd_reference(
             robot, q0T, qd0T, tauT, qs, qds, gqs, gqds, dt, use_damping, include_gravity, gravity
@@ -880,8 +890,9 @@ def dyn_rollout_ee_bwd(robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx
     cotangents gps [H, 3, B] and, optionally, gqs on qs and gqds on qds
     ([H, D, B]; None reads no tensor), from its saved outputs, in two phases
     a window (module docstring). Returns (gtau [H, D, B], gq0, gqd0 [D,
-    B])."""
+    B]). Raises for a revolute joint whose axis is not of unit length."""
     H, D, B = _check_rollout(robot, q0T, qd0T, tauT, _bwd_shapes(tauT, qs, qds, gqs, gqds, ps, gps))
+    check_unit_axes(robot, range(1, robot.n_links), "dyn_rollout_ee_bwd")
     if q0T.device.type == "cpu":
         return dyn_rollout_ee_bwd_reference(
             robot, q0T, qd0T, tauT, qs, qds, ps, gps, dt, ee_link_idx, use_damping,

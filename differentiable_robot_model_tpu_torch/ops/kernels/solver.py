@@ -542,6 +542,7 @@ def dynamic_adam_solve(
     qd0T, tau_refT [D, B], goalT [3, B], H0 [D, D, B] or None (no
     preconditioning), aT0 [H, D, B]. Returns (tau [H, D, B] applied torques,
     costs [n_iters+1, B]): costs[t] before update t, costs[n_iters] final.
+    Raises for a revolute joint whose axis is not of unit length.
 
     Bound on the H100: per scenario, stage and iteration one step and one
     chain FK with J^T g forward, and an LDL^T solve and an RNEA with one
@@ -555,6 +556,7 @@ def dynamic_adam_solve(
     `kernel_variant(robot)`'s.
     """
     H, D, B, named = _validate_dyn(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters)
+    check_unit_axes(robot, range(1, robot.n_links), "dyn_solve")
     if q0T.device.type == "cpu":
         return dynamic_adam_solve_reference(
             robot, q0T, qd0T, goalT, tau_refT, H0, aT0, ee_link_idx, n_iters, dt, lr,

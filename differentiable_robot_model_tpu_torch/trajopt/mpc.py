@@ -4,9 +4,10 @@ PyTorch counterpart of the kinematic and torque-space MPC drivers in the
 JAX package's `trajopt/mpc.py`. An MPC step is (solve with warm start) +
 (execute the first action(s)) + (shift the plan); the batched steps replan
 a whole fleet of B scenarios with one solve, and `run_closed_loop` runs N
-ticks of any of them. Three families: kinematic (Adam on joint deltas),
-torque-space (Adam through the forward dynamics) and sampling (MPPI
-through the forward dynamics).
+ticks of any of them. Four families: kinematic (Adam on joint deltas),
+torque-space (Adam through the forward dynamics), sampling (MPPI through
+the forward dynamics) and second-order (iLQR through the forward
+dynamics).
 """
 
 from __future__ import annotations
@@ -23,8 +24,14 @@ from ..ops.dynamics_scalar import rnea_scalar
 from ..ops.kernels.fk import fk_position_dof_major
 from ..ops.kernels.rng import prng_key, split_key
 from ..ops.kernels.rollout import dyn_rollout_ee_fwd, dyn_rollout_ee_fwd_reference
-from .rollout import clip_to_limits
+from .rollout import _positive_or_inf, clip_to_limits
 from .solvers import (
+    autodiff_f_AB,
+    autodiff_linearize,
+    ilqr_batch,
+    make_gn_reach_linearize,
+    make_ift_f_AB,
+    make_plant_dynamics,
     resolve_dynamic_engine,
     resolve_engine,
     resolve_mppi_engine,
@@ -156,6 +163,29 @@ def make_mpc_step_batch(
         return MPCState(q_next, plan_next, states.step_count + 1), metrics
 
     return step
+
+
+def run_mpc(
+    robot: RobotStruct,
+    q0: torch.Tensor,
+    goal: torch.Tensor,
+    ee_link_idx: int,
+    config: MPCConfig,
+    n_steps: int,
+):
+    """Closed-loop kinematic MPC of one scenario: `n_steps` ticks of
+    `make_mpc_step` from `mpc_init`. Returns (final MPCState, MPCMetrics
+    with every field stacked over the ticks, q trajectory [n_steps, D])."""
+    step = make_mpc_step(robot, ee_link_idx, config)
+    state = mpc_init(robot, q0, config)
+    metrics, q_traj = [], []
+    for _ in range(n_steps):
+        state, met = step(state, goal)
+        metrics.append(met)
+        q_traj.append(state.q)
+    if not metrics:
+        raise ValueError("run_mpc needs n_steps >= 1")
+    return state, MPCMetrics(*(torch.stack(f) for f in zip(*metrics))), torch.stack(q_traj)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,6 +415,136 @@ def make_mppi_mpc_step(robot: RobotStruct, ee_link_idx: int, config: MPPIMPCConf
         )
         new = MPPIMPCState(q[0], qd[0], plan_next[0], key_next, state.step_count + 1)
         return new, MPCMetrics(*(x[0] for x in metrics))
+
+    return step
+
+
+@dataclasses.dataclass(frozen=True)
+class ILQRMPCConfig:
+    """Config of the closed-loop second-order (iLQR) torque-space MPC step.
+    The solver budget is iLQR iterations, each one Riccati backward pass and
+    the parallel line search."""
+
+    horizon: int = 20
+    iters_per_step: int = 5
+    dt: float = 0.02
+    goal_weight: float = 10.0
+    effort_weight: float = 1e-4
+    reg: float = 1e-6
+    replan_interval: int = 1
+    respect_effort_limits: bool = False
+    riccati: str = "sequential"  # or "parallel" (see solvers.ilqr_batch)
+    # Stage derivatives: "gauss_newton" (analytic cost derivatives from the
+    # ee's geometric Jacobian, lxx = 2w J^T J; solvers.make_gn_reach_linearize)
+    # or "exact" (solvers.autodiff_linearize: the full cost Hessian through
+    # the FK by torch.func, and the dynamics Jacobians by forward mode).
+    linearization: str = "gauss_newton"
+    # Dynamics Jacobians of "gauss_newton": "ift" (solvers.make_ift_f_AB,
+    # from the rollout adjoint's phase A kernel and back-substitutions) or
+    # "autodiff" (forward mode through the plain plant step).
+    dynamics_jacobians: str = "ift"
+
+
+class ILQRMPCState(NamedTuple):
+    q: torch.Tensor  # [..., D]
+    qd: torch.Tensor  # [..., D]
+    plan: torch.Tensor  # [..., H, D] warm-start absolute torque sequence
+    step_count: torch.Tensor  # [...]
+
+
+def ilqr_mpc_init(robot: RobotStruct, q0, qd0, config: ILQRMPCConfig) -> ILQRMPCState:
+    """Initial state(s) for q0, qd0 [..., D] with the plan at gravity
+    compensation (a hold-still warm start), as `dynamic_mpc_init`."""
+    return ILQRMPCState(*dynamic_mpc_init(robot, q0, qd0, DynamicMPCConfig(horizon=config.horizon)))
+
+
+def make_ilqr_mpc_step_batch(robot: RobotStruct, ee_link_idx: int, config: ILQRMPCConfig):
+    """The fleet iLQR MPC step: (states [B], goals [B, 3]) -> (states',
+    metrics), one `solvers.ilqr_batch` solve per replan, warm-started from
+    the shifted plan.
+
+    State x = [q; qd], control u = the applied torques; the dynamics are
+    the plant of the other torque-space drivers (semi-implicit Euler,
+    implicit joint damping, the URDF velocity clamp), one launch of the
+    rollout kernel K5 a step (`solvers.make_plant_dynamics`; its plain
+    version on the CPU). The cost is the Adam driver's: goal_weight^2 / (3H)
+    |p_ee(q) - goal|^2 on every state, the same on the last, and
+    effort_weight / (H D) |u - tau_ref|^2 around the gravity torques at the
+    tick's start state. `respect_effort_limits` imposes the URDF effort box
+    by forward-pass projection. The plant then executes `replan_interval`
+    torques through the same step, and the plan shifts with its last
+    torque held over the tail. The "exact" and "autodiff" engines
+    differentiate the plain plant step by `torch.func`; the rollouts run on
+    K5 all the same.
+    """
+    if config.linearization not in ("gauss_newton", "exact"):
+        raise ValueError(f"linearization must be 'gauss_newton' or 'exact', got {config.linearization!r}")
+    if config.dynamics_jacobians not in ("ift", "autodiff"):
+        raise ValueError(f"dynamics_jacobians must be 'ift' or 'autodiff', got "
+                         f"{config.dynamics_jacobians!r}")
+    D, H = robot.n_dofs, config.horizon
+    control_bounds = None
+    if config.respect_effort_limits:
+        e = _positive_or_inf(robot.limit_effort)
+        control_bounds = (-e, e)
+    plant = make_plant_dynamics(robot, config.dt)
+    smooth = make_plant_dynamics(robot, config.dt, plain=True)
+    gw = config.goal_weight**2 / (3.0 * H)
+    ew = config.effort_weight / (H * D)
+
+    def step(states: ILQRMPCState, goals: torch.Tensor):
+        qT = states.q.T
+        tau_ref = rnea_scalar(robot, qT, torch.zeros_like(qT), torch.zeros_like(qT)).T  # [B, D]
+
+        def goal_term(x):
+            p = K.fk_link_position(robot, x[..., :D], ee_link_idx)
+            return gw * torch.sum((p - goals) ** 2, dim=-1)
+
+        def cost(x, u):
+            # x_0's goal term is a constant of the controls; it keeps the
+            # stage cost uniform
+            return goal_term(x) + ew * torch.sum((u - tau_ref) ** 2, dim=-1)
+
+        if config.linearization == "gauss_newton":
+            f_AB = (make_ift_f_AB(robot, config.dt) if config.dynamics_jacobians == "ift"
+                    else autodiff_f_AB(smooth))
+            linearize = make_gn_reach_linearize(robot, ee_link_idx, plant, goals, stage_goal_w=gw,
+                                                effort_w=ew, u_ref=tau_ref, f_AB=f_AB)
+        else:
+            linearize = autodiff_linearize(smooth, cost, goal_term)
+        result = ilqr_batch(
+            plant, cost, goal_term, torch.cat([states.q, states.qd], dim=-1), states.plan,
+            n_iters=config.iters_per_step, reg=config.reg, riccati=config.riccati,
+            control_bounds=control_bounds, linearize=linearize,
+        )
+        with torch.no_grad():
+            n_exec = config.replan_interval
+            x = torch.cat([states.q, states.qd], dim=-1)
+            for i in range(n_exec):
+                x = plant(x, result.us[:, i])
+            q, qd = x[:, :D], x[:, D:]
+            B = result.us.shape[0]
+            plan_next = torch.cat([result.us[:, n_exec:], result.us[:, -1:].expand(B, n_exec, D)], dim=1)
+            ee = K.fk_link_position(robot, q, ee_link_idx)
+            metrics = MPCMetrics(
+                cost=result.cost,
+                cost_initial=result.cost_history[:, 0],
+                goal_distance=torch.linalg.norm(ee - goals, dim=-1),
+                plan_norm=torch.sqrt(torch.mean(result.us**2, dim=(1, 2))),
+            )
+        return ILQRMPCState(q, qd, plan_next, states.step_count + 1), metrics
+
+    return step
+
+
+def make_ilqr_mpc_step(robot: RobotStruct, ee_link_idx: int, config: ILQRMPCConfig):
+    """The single-scenario iLQR MPC step: (state, goal [3]) -> (state',
+    metrics), the batched step at B=1."""
+    step_batch = make_ilqr_mpc_step_batch(robot, ee_link_idx, config)
+
+    def step(state: ILQRMPCState, goal: torch.Tensor):
+        states, metrics = step_batch(ILQRMPCState(*(x[None] for x in state)), goal[None])
+        return ILQRMPCState(*(x[0] for x in states)), MPCMetrics(*(x[0] for x in metrics))
 
     return step
 
