@@ -145,6 +145,11 @@ class RobotStruct:
     def device(self) -> torch.device:
         return self.trans.device
 
+    @property
+    def requires_grad(self) -> bool:
+        """Whether any array requires grad (learnable parameters applied)."""
+        return any(a.requires_grad for a in self.arrays().values())
+
     def arrays(self) -> dict[str, torch.Tensor]:
         return {f: getattr(self, f) for f in ARRAY_FIELDS}
 
@@ -155,6 +160,25 @@ class RobotStruct:
         """A copy with every array moved to `device` and/or cast to `dtype`."""
         moved = {k: v.to(device=device, dtype=dtype) for k, v in self.arrays().items()}
         return RobotStruct(**moved, **self.static())
+
+    def with_arrays(self, **updates) -> "RobotStruct":
+        """A copy with the named arrays replaced, whose specialization hints
+        follow the new arrays: an overlay on `axis`, `rot_angles` or `trans`
+        recomputes `axis_code`, `rpy_zero` or `trans_zero` from its values,
+        or clears them (no axis-aligned or zero entry claimed) where the new
+        tensor requires grad, without reading it from the device."""
+        arrays = {**self.arrays(), **updates}
+        static = self.static()
+        for field, hint, of, cleared in (
+            ("axis", "axis_code", _axis_codes_of, lambda L: (None,) * L),
+            ("rot_angles", "rpy_zero", _rpy_zero_of, lambda L: (False,) * L),
+            ("trans", "trans_zero", _trans_zero_of, lambda L: ((False,) * 3,) * L),
+        ):
+            if field in updates:
+                x = updates[field]
+                static[hint] = (cleared(x.shape[0]) if x.requires_grad
+                                else of(x.detach().cpu().numpy()))
+        return RobotStruct(**arrays, **static)
 
     def memo(self, key, build):
         """`build()`, computed once per struct and key, and again after any

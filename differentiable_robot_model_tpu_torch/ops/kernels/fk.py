@@ -94,12 +94,19 @@ def check_unit_axes(robot: RobotStruct, links, what: str) -> None:
     (within UNIT_AXIS_TOL). `what`'s hand-written adjoint uses identities
     that hold only for unit axes (a rotation about a, Rᵀ dR/dq = [a]×; the
     geometric Jacobian z × (p - o)); URDF ingest normalises the axes, but
-    `struct_from_arrays` takes them as given (ROADMAP W6). Checked once per
-    struct and links."""
+    `struct_from_arrays` takes them as given (ROADMAP W6). The norms are read
+    once per axis tensor (again after it is written in place), so that a
+    struct which only overlays other tensors, as learnable parameters do,
+    reads nothing from the device."""
     links = tuple(links)
     revolute = [l for l in links if robot.joint_types[l] == JOINT_REVOLUTE]
-    norms = robot.memo(("axis_norms", links), lambda: np.linalg.norm(
-        robot.numpy()["axis"][revolute].astype(np.float64), axis=-1))
+    axis = robot.axis
+    stamp = (axis._version, axis.data_ptr())
+    cached = getattr(axis, "_unit_axis_norms", None)
+    if cached is None or cached[0] != stamp:
+        norms = np.linalg.norm(axis.detach().cpu().numpy().astype(np.float64), axis=-1)
+        cached = axis._unit_axis_norms = (stamp, norms)
+    norms = cached[1][revolute]
     for l, norm in zip(revolute, norms):
         if abs(norm - 1.0) > UNIT_AXIS_TOL:
             raise ValueError(

@@ -101,6 +101,19 @@ def _adam_update(x, g, m, v, t, lr, eps, eps_root=1e-8):
     return x + (-lr) * (m_hat / (torch.sqrt(v_hat + eps_root) + eps)), m, v
 
 
+def _cost_and_grad(cost_fn, actions, through: bool):
+    """(a, cost_fn(a), its gradient w.r.t. a) for a = actions. With
+    `through` (a robot whose tensors require grad: identification through
+    the solve) the gradient keeps its graph, so that the whole Adam loop
+    stays differentiable w.r.t. the robot, as the JAX package's scanned
+    loop is; otherwise the cost comes back detached."""
+    with torch.enable_grad():
+        a = actions if actions.requires_grad else actions.requires_grad_(True)
+        cost = cost_fn(a)
+        (g,) = torch.autograd.grad(cost, a, create_graph=through)
+    return a, (cost if through else cost.detach()), g
+
+
 def solve_kinematic_adam(
     robot: RobotStruct,
     q0: torch.Tensor,
@@ -131,30 +144,31 @@ def solve_kinematic_adam(
         )
         return dense_goal_cost(goal_ee_pos, ee_traj, goal_weight)
 
+    through = robot.requires_grad
     m = torch.zeros_like(actions)
     v = torch.zeros_like(actions)
     costs = []
     for t in range(1, n_iters + 1):
-        with torch.enable_grad():
-            a = actions.requires_grad_(True)
-            cost = cost_fn(a)
-            (g,) = torch.autograd.grad(cost, a)
-        costs.append(cost.detach())
-        with torch.no_grad():
-            actions, m, v = _adam_update(actions.detach(), g, m, v, t, lr, eps)
-    with torch.no_grad():
+        a, cost, g = _cost_and_grad(cost_fn, actions, through)
+        costs.append(cost)
+        with torch.set_grad_enabled(through):
+            actions, m, v = _adam_update(a if through else actions.detach(), g, m, v, t, lr, eps)
+    with torch.set_grad_enabled(through):
         final = cost_fn(actions)
     history = torch.stack(costs) if costs else actions.new_zeros((0,))
     return TrajOptResult(actions, final, history)
 
 
 def resolve_engine(fk_impl: str, robot: RobotStruct, horizon: int, n_iters: int) -> str:
-    """The engine `fk_impl` names, with "auto" resolved for this robot."""
+    """The engine `fk_impl` names, with "auto" resolved for this robot: the
+    plain "scalar" on the CPU or for a robot whose tensors require grad (the
+    kernels treat the robot as constant; an explicit "kernel" or "fused"
+    raises for it), else "fused" for float32 and "kernel"."""
     if fk_impl not in ENGINES:
         raise ValueError(f"fk_impl must be one of {ENGINES}, got {fk_impl!r}")
     if fk_impl != "auto":
         return fk_impl
-    if robot.device.type != "cuda":
+    if robot.device.type != "cuda" or robot.requires_grad:
         return "scalar"
     if robot.dtype == torch.float32 and horizon >= 2 and n_iters >= 1:
         return "fused"
@@ -297,19 +311,17 @@ def solve_dynamic_adam(
         err = goal_weight * (p - goal_ee_pos[:, None])
         return torch.mean(err * err) + effort_weight * torch.mean(dtau * dtau)
 
+    through = robot.requires_grad
     actions = actions.detach().clone()
     m = torch.zeros_like(actions)
     v = torch.zeros_like(actions)
     costs = []
     for t in range(1, n_iters + 1):
-        with torch.enable_grad():
-            a = actions.requires_grad_(True)
-            cost = cost_fn(a)
-            (g,) = torch.autograd.grad(cost, a)
-        costs.append(cost.detach())
-        with torch.no_grad():
-            actions, m, v = _adam_update(actions.detach(), g, m, v, t, lr, eps)
-    with torch.no_grad():
+        a, cost, g = _cost_and_grad(cost_fn, actions, through)
+        costs.append(cost)
+        with torch.set_grad_enabled(through):
+            actions, m, v = _adam_update(a if through else actions.detach(), g, m, v, t, lr, eps)
+    with torch.set_grad_enabled(through):
         final = cost_fn(actions)
         taus = applied(actions)
     history = torch.stack(costs) if costs else actions.new_zeros((0,))
@@ -317,12 +329,15 @@ def solve_dynamic_adam(
 
 
 def resolve_dynamic_engine(rollout_impl: str, robot: RobotStruct, n_iters: int) -> str:
-    """The engine `rollout_impl` names, with "auto" resolved for this robot."""
+    """The engine `rollout_impl` names, with "auto" resolved for this robot:
+    the plain "scan" on the CPU or for a robot whose tensors require grad
+    (an explicit "kernel" or "fused" raises for it), else "fused" for
+    float32 and "kernel"."""
     if rollout_impl not in DYNAMIC_ENGINES:
         raise ValueError(f"rollout_impl must be one of {DYNAMIC_ENGINES}, got {rollout_impl!r}")
     if rollout_impl != "auto":
         return rollout_impl
-    if robot.device.type != "cuda":
+    if robot.device.type != "cuda" or robot.requires_grad:
         return "scan"
     if robot.dtype == torch.float32 and n_iters >= 1:
         return "fused"
@@ -442,8 +457,9 @@ def resolve_mppi_engine(rollout_impl: str, robot: RobotStruct, n_samples: int, a
     """The engine `rollout_impl` names, with "auto" resolved: for a batch the
     whole-solve kernel K10 ("fused") on a CUDA float32 robot without
     adaptation and with at most 1024 samples, the per-iteration rollout
-    kernel ("kernel") on other CUDA robots, plain torch ("scan") on the CPU.
-    An explicit "fused" that K10 cannot run raises."""
+    kernel ("kernel") on other CUDA robots, plain torch ("scan") on the CPU
+    and for a robot whose tensors require grad. An explicit "fused" that K10
+    cannot run raises."""
     engines = MPPI_BATCH_ENGINES if batched else MPPI_ENGINES
     if rollout_impl not in engines:
         raise ValueError(f"rollout_impl must be one of {engines}, got {rollout_impl!r}")
@@ -456,7 +472,7 @@ def resolve_mppi_engine(rollout_impl: str, robot: RobotStruct, n_samples: int, a
                              f"got {n_samples}")
     if rollout_impl != "auto":
         return rollout_impl
-    if robot.device.type != "cuda":
+    if robot.device.type != "cuda" or robot.requires_grad:
         return "scan"
     if batched and robot.dtype == torch.float32 and not adapt and n_samples <= MAX_SAMPLES:
         return "fused"
