@@ -19,7 +19,10 @@ constants reach the kernel as one by-value `Chain` argument (built here by
 them in as immediates instead.
 
 On a CUDA tensor the wrappers launch the kernel or raise; they take the
-plain version only for a tensor on the CPU.
+plain version only for a tensor on the CPU. The autograd entry
+`fk_position_dof_major` also takes the plain differentiable FK for a robot
+whose tensors require grad, as the JAX package's wrapper does for a traced
+robot.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ...models.structs import JOINT_FIXED, JOINT_PRISMATIC, JOINT_REVOLUTE, RobotStruct, _axis_codes_of
+from ..kinematics import fk_link_position_dof_first
 from . import build
 
 # Must match DRM_MAX_CHAIN / DRM_MAX_DOF in csrc/chain.cuh (checked at load).
@@ -438,6 +442,11 @@ class FkPositionDofMajor(torch.autograd.Function):
 
 def fk_position_dof_major(robot: RobotStruct, qM: torch.Tensor, link_idx: int):
     """World position [3, M] of link `link_idx` for dof-major configs qM
-    [D, M], differentiable w.r.t. qM: the `"kernel"` engine's FK. Raises if
-    a robot tensor the kernels read requires grad (use `fk_impl="scalar"`)."""
+    [D, M], differentiable w.r.t. qM: the `"kernel"` engine's FK (K1, its
+    backward K2). For a robot whose tensors require grad it takes the
+    plain differentiable scalar FK instead (`fk_link_position_dof_first`),
+    decided here before any launch, as the JAX package's FK wrapper routes
+    a traced robot: the robot's gradient then flows by autograd."""
+    if robot.requires_grad:
+        return fk_link_position_dof_first(robot, qM, link_idx)
     return FkPositionDofMajor.apply(qM, robot, link_idx)

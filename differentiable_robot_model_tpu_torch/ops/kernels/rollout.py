@@ -47,7 +47,10 @@ threads, and its phase B one thread per scenario on a chain a fraction of
 a step long.
 
 On a CUDA tensor the wrappers launch the kernels or raise; they take the
-plain versions only for tensors on the CPU.
+plain versions only for tensors on the CPU. The autograd entries
+`dynamic_rollout` and `dynamic_rollout_ee` also take the plain
+differentiable rollout for a robot whose tensors require grad, as the JAX
+package's fall back to its scan for a traced robot.
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ from .fk import (
     fixed_rotation,
     joint_vjp,
 )
+from ..kinematics import fk_link_position_dof_first
 
 # Must match DRM_MAX_LINKS in csrc/dyn_step.cuh (checked at load). The
 # largest bundled robot has 29 links (kuka_iiwa7_allegro).
@@ -995,10 +999,15 @@ def dynamic_rollout(robot: RobotStruct, q0T, qd0T, tauT, dt: float, include_grav
     """(qs, qds [H, D, B]) of H forward-dynamics steps from (q0T, qd0T [D, B])
     under tauT [H, D, B], differentiable w.r.t. (q0T, qd0T, tauT) through
     both outputs: the counterpart of the JAX package's
-    `dynamic_rollout_pallas`. Raises if a robot tensor the kernels read
-    requires grad."""
-    flags = StepFlags(dt, use_damping, include_gravity, gravity)
+    `dynamic_rollout_pallas`. For a robot whose tensors require grad it
+    takes the plain differentiable rollout (`dynamic_rollout_dof_major`)
+    instead, decided here before any launch, as the JAX package's falls
+    back to its scan for a traced robot."""
     tauT = _effort_box(robot, tauT, respect_effort_limits)
+    if robot.requires_grad:
+        return dynamic_rollout_dof_major(robot, q0T, qd0T, tauT, dt, include_gravity=include_gravity,
+                                         use_damping=use_damping, gravity=gravity)
+    flags = StepFlags(dt, use_damping, include_gravity, gravity)
     return DynamicRollout.apply(q0T, qd0T, tauT, robot, flags)
 
 
@@ -1008,7 +1017,15 @@ def dynamic_rollout_ee(robot: RobotStruct, q0T, qd0T, tauT, dt: float, ee_link_i
     """(qs, qds [H, D, B], ps [H, 3, B]) of H forward-dynamics steps with the
     ee trajectory, differentiable w.r.t. (q0T, qd0T, tauT) through all three
     outputs: the `"kernel"` engine's rollout, the counterpart of the JAX
-    package's `dynamic_rollout_ee_pallas`. Raises if a robot tensor the
-    kernels read requires grad."""
+    package's `dynamic_rollout_ee_pallas`. For a robot whose tensors
+    require grad it takes the plain differentiable rollout and the scalar
+    FK instead, decided here before any launch, as the JAX package's falls
+    back to its scan for a traced robot."""
+    if robot.requires_grad:
+        qs, qds = dynamic_rollout_dof_major(robot, q0T, qd0T, tauT, dt, include_gravity=include_gravity,
+                                            use_damping=use_damping, gravity=gravity)
+        H, D, B = qs.shape
+        p = fk_link_position_dof_first(robot, qs.transpose(0, 1).reshape(D, H * B), ee_link_idx)
+        return qs, qds, p.reshape(3, H, B).transpose(0, 1)
     flags = StepFlags(dt, use_damping, include_gravity, gravity)
     return DynamicRolloutEE.apply(q0T, qd0T, tauT, robot, flags, ee_link_idx)

@@ -549,16 +549,58 @@ def make_ilqr_mpc_step(robot: RobotStruct, ee_link_idx: int, config: ILQRMPCConf
     return step
 
 
+def make_fleet_dynamic_mpc_step_specialized(robots, ee_link_idxs, config):
+    """The torque-space MPC step of a fleet of different robots: one
+    `make_dynamic_mpc_step_batch` per member, each on its own robot's
+    solver and plant (on the card the prologue and K9 a replan, K7 at H=1
+    the plant step; K9's build chosen per member). `(states, goals) ->
+    (states', metrics)` with `states` a tuple of per-member batched
+    `DynamicMPCState` ([B_r, ...]; B_r may differ) and `goals` a tuple of
+    [B_r, 3]; the metrics are a tuple of `MPCMetrics`. `config` is one
+    `DynamicMPCConfig` for every member or a list, one a member (horizons
+    and budgets may differ). Composes with `run_closed_loop`."""
+    configs = list(config) if isinstance(config, (list, tuple)) else [config] * len(robots)
+    if not len(robots) == len(ee_link_idxs) == len(configs):
+        raise ValueError("one end effector and one config per member")
+    steps = [make_dynamic_mpc_step_batch(r, e, c) for r, e, c in zip(robots, ee_link_idxs, configs)]
+
+    def step(states, goals):
+        outs = [fn(st, g) for fn, st, g in zip(steps, states, goals)]
+        return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+
+    return step
+
+
+def _index(tree, i):
+    """Entry i of every tensor in a tensor or a (named) tuple of them."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    items = [_index(x, i) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+
+def _stack(trees):
+    """Tensors, or (named) tuples of them nested alike, stacked leaf by leaf
+    on a new leading axis."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    items = [_stack(list(leaves)) for leaves in zip(*trees)]
+    return type(first)(*items) if hasattr(first, "_fields") else type(first)(items)
+
+
 def run_closed_loop(step_fn, state0, goal, n_steps: int, per_tick_goal: bool = False):
     """N warm-started MPC ticks of `step_fn` (any of this module's steps:
-    `(state, goal) -> (state', metrics)`). Returns (final state, metrics
-    with every field stacked over the ticks on a new leading axis). With
-    `per_tick_goal`, `goal[i]` is tick i's goal (a moving setpoint);
-    otherwise every tick shares `goal`."""
+    `(state, goal) -> (state', metrics)`, the fleet step's tuples of
+    per-member states, goals and metrics included). Returns (final state,
+    metrics with every tensor stacked over the ticks on a new leading
+    axis, in the step's nesting). With `per_tick_goal`, entry i of every
+    goal tensor is tick i's goal (a moving setpoint); otherwise every tick
+    shares `goal`."""
     state, history = state0, []
     for i in range(n_steps):
-        state, metrics = step_fn(state, goal[i] if per_tick_goal else goal)
+        state, metrics = step_fn(state, _index(goal, i) if per_tick_goal else goal)
         history.append(metrics)
     if not history:
         raise ValueError("run_closed_loop needs n_steps >= 1")
-    return state, type(history[0])(*(torch.stack(f) for f in zip(*history)))
+    return state, _stack(history)

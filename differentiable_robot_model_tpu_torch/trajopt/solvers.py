@@ -7,6 +7,11 @@ eps_root=1e-8)`: a -= lr * m_hat / (sqrt(v_hat + eps_root) + eps).
 `torch.optim.Adam` has no eps_root, and here eps does real work: it damps
 the steps along action directions that barely move the end effector.
 
+Every solver takes its plain engine for a robot whose tensors require grad,
+whatever engine it is given (the JAX package's kernel engines run their
+plain path for a traced robot); the Adam solvers then stay differentiable
+w.r.t. the robot through the whole solve (identification through it).
+
 `solve_kinematic_adam_batch` has three engines:
 - "scalar": plain torch with autograd through the scalar-expanded FK;
 - "kernel": the FK kernels K1/K2 as a torch.autograd.Function, once per
@@ -101,17 +106,26 @@ def _adam_update(x, g, m, v, t, lr, eps, eps_root=1e-8):
     return x + (-lr) * (m_hat / (torch.sqrt(v_hat + eps_root) + eps)), m, v
 
 
-def _cost_and_grad(cost_fn, actions, through: bool):
-    """(a, cost_fn(a), its gradient w.r.t. a) for a = actions. With
-    `through` (a robot whose tensors require grad: identification through
-    the solve) the gradient keeps its graph, so that the whole Adam loop
-    stays differentiable w.r.t. the robot, as the JAX package's scanned
-    loop is; otherwise the cost comes back detached."""
-    with torch.enable_grad():
-        a = actions if actions.requires_grad else actions.requires_grad_(True)
-        cost = cost_fn(a)
-        (g,) = torch.autograd.grad(cost, a, create_graph=through)
-    return a, (cost if through else cost.detach()), g
+def _adam_loop(cost_fn, actions, n_iters: int, lr: float, eps: float, through: bool):
+    """n_iters Adam steps (`_adam_update`) on `actions` over cost_fn(a) ->
+    (the scalar to differentiate, the costs to record). Returns the actions
+    and the recorded costs before each step. With `through` (a robot whose
+    tensors require grad: identification through the solve) every gradient
+    and update keeps its graph, so the whole loop stays differentiable
+    w.r.t. the robot, as the JAX package's scanned loop is; otherwise each
+    step runs detached."""
+    m = torch.zeros_like(actions)
+    v = torch.zeros_like(actions)
+    history = []
+    for t in range(1, n_iters + 1):
+        with torch.enable_grad():
+            a = actions if actions.requires_grad else actions.detach().requires_grad_(True)
+            total, costs = cost_fn(a)
+            (g,) = torch.autograd.grad(total, a, create_graph=through)
+        history.append(costs if through else costs.detach())
+        with torch.set_grad_enabled(through):
+            actions, m, v = _adam_update(a if through else a.detach(), g, m, v, t, lr, eps)
+    return actions, history
 
 
 def solve_kinematic_adam(
@@ -145,14 +159,7 @@ def solve_kinematic_adam(
         return dense_goal_cost(goal_ee_pos, ee_traj, goal_weight)
 
     through = robot.requires_grad
-    m = torch.zeros_like(actions)
-    v = torch.zeros_like(actions)
-    costs = []
-    for t in range(1, n_iters + 1):
-        a, cost, g = _cost_and_grad(cost_fn, actions, through)
-        costs.append(cost)
-        with torch.set_grad_enabled(through):
-            actions, m, v = _adam_update(a if through else actions.detach(), g, m, v, t, lr, eps)
+    actions, costs = _adam_loop(lambda a: (cost_fn(a),) * 2, actions, n_iters, lr, eps, through)
     with torch.set_grad_enabled(through):
         final = cost_fn(actions)
     history = torch.stack(costs) if costs else actions.new_zeros((0,))
@@ -160,15 +167,19 @@ def solve_kinematic_adam(
 
 
 def resolve_engine(fk_impl: str, robot: RobotStruct, horizon: int, n_iters: int) -> str:
-    """The engine `fk_impl` names, with "auto" resolved for this robot: the
-    plain "scalar" on the CPU or for a robot whose tensors require grad (the
-    kernels treat the robot as constant; an explicit "kernel" or "fused"
-    raises for it), else "fused" for float32 and "kernel"."""
+    """The engine `fk_impl` names, resolved for this robot once, before any
+    launch: the plain "scalar" on the CPU ("auto") and, whatever `fk_impl`
+    names, for a robot whose tensors require grad (the kernels treat the
+    robot as constant; the JAX package likewise runs its plain
+    differentiable path for a traced robot), else "fused" for float32 and
+    "kernel" ("auto"), or the engine named."""
     if fk_impl not in ENGINES:
         raise ValueError(f"fk_impl must be one of {ENGINES}, got {fk_impl!r}")
+    if robot.requires_grad:
+        return "scalar"
     if fk_impl != "auto":
         return fk_impl
-    if robot.device.type != "cuda" or robot.requires_grad:
+    if robot.device.type != "cuda":
         return "scalar"
     if robot.dtype == torch.float32 and horizon >= 2 and n_iters >= 1:
         return "fused"
@@ -193,7 +204,10 @@ def solve_kinematic_adam_batch(
     Every tensor inside is dof-major ([D or 3, ..., B], scenario batch
     minor), the layout of the kernels' boundary; the horizon integration is
     the clamp-affine scan and all B x H configurations go through one FK
-    call per Adam iteration. q0 is clipped to the limits first.
+    call per Adam iteration. q0 is clipped to the limits first. For a
+    robot whose tensors require grad the engine is "scalar" and the whole
+    solve (every Adam step and the final cost) stays differentiable
+    w.r.t. the robot, as the JAX package's is.
     """
     B, D = q0.shape
     H = horizon
@@ -229,19 +243,10 @@ def solve_kinematic_adam_batch(
         cost_b = torch.mean(err * err, dim=(0, 1))  # [B], mean over 3*H terms
         return torch.sum(cost_b), cost_b
 
-    aT = aT0.clone(memory_format=torch.contiguous_format)
-    m = torch.zeros_like(aT)
-    v = torch.zeros_like(aT)
-    costs = []
-    for t in range(1, n_iters + 1):
-        with torch.enable_grad():
-            a = aT.requires_grad_(True)
-            total, cost_b = cost_fn(a)
-            (g,) = torch.autograd.grad(total, a)
-        costs.append(cost_b.detach())
-        with torch.no_grad():
-            aT, m, v = _adam_update(aT.detach(), g, m, v, t, lr, eps)
-    with torch.no_grad():
+    through = robot.requires_grad
+    aT, costs = _adam_loop(cost_fn, aT0.clone(memory_format=torch.contiguous_format), n_iters, lr,
+                           eps, through)
+    with torch.set_grad_enabled(through):
         _, final_cost = cost_fn(aT)
     history = torch.stack(costs) if costs else final_cost.new_zeros((0, B))
     return BatchTrajOptResult(aT.permute(2, 1, 0), final_cost, history)
@@ -312,15 +317,7 @@ def solve_dynamic_adam(
         return torch.mean(err * err) + effort_weight * torch.mean(dtau * dtau)
 
     through = robot.requires_grad
-    actions = actions.detach().clone()
-    m = torch.zeros_like(actions)
-    v = torch.zeros_like(actions)
-    costs = []
-    for t in range(1, n_iters + 1):
-        a, cost, g = _cost_and_grad(cost_fn, actions, through)
-        costs.append(cost)
-        with torch.set_grad_enabled(through):
-            actions, m, v = _adam_update(a if through else actions.detach(), g, m, v, t, lr, eps)
+    actions, costs = _adam_loop(lambda a: (cost_fn(a),) * 2, actions, n_iters, lr, eps, through)
     with torch.set_grad_enabled(through):
         final = cost_fn(actions)
         taus = applied(actions)
@@ -329,15 +326,18 @@ def solve_dynamic_adam(
 
 
 def resolve_dynamic_engine(rollout_impl: str, robot: RobotStruct, n_iters: int) -> str:
-    """The engine `rollout_impl` names, with "auto" resolved for this robot:
-    the plain "scan" on the CPU or for a robot whose tensors require grad
-    (an explicit "kernel" or "fused" raises for it), else "fused" for
-    float32 and "kernel"."""
+    """The engine `rollout_impl` names, resolved for this robot once, before
+    any launch: the plain "scan" on the CPU ("auto") and, whatever
+    `rollout_impl` names, for a robot whose tensors require grad (as the
+    JAX package's "pallas" and "fused" run its scan for a traced robot),
+    else "fused" for float32 and "kernel" ("auto"), or the engine named."""
     if rollout_impl not in DYNAMIC_ENGINES:
         raise ValueError(f"rollout_impl must be one of {DYNAMIC_ENGINES}, got {rollout_impl!r}")
+    if robot.requires_grad:
+        return "scan"
     if rollout_impl != "auto":
         return rollout_impl
-    if robot.device.type != "cuda" or robot.requires_grad:
+    if robot.device.type != "cuda":
         return "scan"
     if robot.dtype == torch.float32 and n_iters >= 1:
         return "fused"
@@ -376,7 +376,10 @@ def solve_dynamic_adam_batch(
     `init_actions` are absolute torques [B, H, D], mapped back to deltas
     through H0. Returns the applied torques [B, H, D] (clipped with
     `respect_effort_limits`), the final costs and the cost before each
-    update. Every tensor inside is dof-major ([D, ..., B]).
+    update. Every tensor inside is dof-major ([D, ..., B]). For a robot
+    whose tensors require grad the engine is "scan" and the whole solve
+    (tau_ref, H0, the warm start, every Adam step and the final cost)
+    stays differentiable w.r.t. the robot, as the JAX package's is.
     """
     B, D = q0.shape
     H = horizon
@@ -422,19 +425,9 @@ def solve_dynamic_adam_batch(
         cost_b = torch.mean(err * err, dim=(0, 1)) + effort_weight * torch.mean(dtau * dtau, dim=(0, 1))
         return torch.sum(cost_b), cost_b
 
-    aT = aT0.detach().clone()
-    m = torch.zeros_like(aT)
-    v = torch.zeros_like(aT)
-    costs = []
-    for t in range(1, n_iters + 1):
-        with torch.enable_grad():
-            a = aT.requires_grad_(True)
-            total, cost_b = cost_fn(a)
-            (g,) = torch.autograd.grad(total, a)
-        costs.append(cost_b.detach())
-        with torch.no_grad():
-            aT, m, v = _adam_update(aT.detach(), g, m, v, t, lr, eps)
-    with torch.no_grad():
+    through = robot.requires_grad
+    aT, costs = _adam_loop(cost_fn, aT0, n_iters, lr, eps, through)
+    with torch.set_grad_enabled(through):
         _, final_cost = cost_fn(aT)
         actions = applied(torque_deltas(aT))
     history = torch.stack(costs) if costs else final_cost.new_zeros((0, B))
@@ -454,11 +447,13 @@ class MPPIResult(NamedTuple):
 
 def resolve_mppi_engine(rollout_impl: str, robot: RobotStruct, n_samples: int, adapt: bool,
                         batched: bool) -> str:
-    """The engine `rollout_impl` names, with "auto" resolved: for a batch the
-    whole-solve kernel K10 ("fused") on a CUDA float32 robot without
-    adaptation and with at most 1024 samples, the per-iteration rollout
-    kernel ("kernel") on other CUDA robots, plain torch ("scan") on the CPU
-    and for a robot whose tensors require grad. An explicit "fused" that K10
+    """The engine `rollout_impl` names, resolved once, before any launch: for
+    a batch the whole-solve kernel K10 ("fused") on a CUDA float32 robot
+    without adaptation and with at most 1024 samples, the per-iteration
+    rollout kernel ("kernel") on other CUDA robots, plain torch ("scan") on
+    the CPU ("auto"), or the engine named; "scan" for a robot whose tensors
+    require grad, whatever `rollout_impl` names (the JAX package's kernel
+    engines run its scan for a traced robot). An explicit "fused" that K10
     cannot run raises."""
     engines = MPPI_BATCH_ENGINES if batched else MPPI_ENGINES
     if rollout_impl not in engines:
@@ -470,9 +465,11 @@ def resolve_mppi_engine(rollout_impl: str, robot: RobotStruct, n_samples: int, a
         if n_samples > MAX_SAMPLES:
             raise ValueError(f"rollout_impl='fused' takes at most {MAX_SAMPLES} samples, "
                              f"got {n_samples}")
+    if robot.requires_grad:
+        return "scan"
     if rollout_impl != "auto":
         return rollout_impl
-    if robot.device.type != "cuda" or robot.requires_grad:
+    if robot.device.type != "cuda":
         return "scan"
     if batched and robot.dtype == torch.float32 and not adapt and n_samples <= MAX_SAMPLES:
         return "fused"

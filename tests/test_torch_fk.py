@@ -114,10 +114,18 @@ def test_autograd_entry_on_cpu_uses_plain_versions():
 
 
 def test_kernel_entry_refuses_robot_gradients():
+    """The kernels' autograd entry treats the robot as constant and refuses
+    robot gradients; `fk_position_dof_major` decides before it and takes the
+    plain differentiable FK for such a robot, as JAX's wrapper does (W7)."""
     _, ts, ee = _structs("iiwa", jnp.float32)
     ts2 = dataclasses.replace(ts, trans=ts.trans.clone().requires_grad_(True))
+    q = torch.zeros(7, 4)
     with pytest.raises(ValueError, match="fk_impl='scalar'"):
-        tfk.fk_position_dof_major(ts2, torch.zeros(7, 4), ee)
+        tfk.FkPositionDofMajor.apply(q, ts2, ee)
+    p = tfk.fk_position_dof_major(ts2, q, ee)
+    np.testing.assert_array_equal(p.detach().numpy(), TK.fk_link_position_dof_first(ts, q, ee).numpy())
+    (g,) = torch.autograd.grad(p.sum(), ts2.trans)
+    assert g.abs().max() > 0
 
 
 def test_kernel_build_dir_stays_in_checkout_or_user_cache(tmp_path, monkeypatch):

@@ -159,7 +159,11 @@ def test_solvers_auto_take_plain_engines_for_a_grad_robot():
         assert ts.resolve_engine("auto", robot, 10, 5) == kin
         assert ts.resolve_dynamic_engine("auto", robot, 5) == dyn
         assert ts.resolve_mppi_engine("auto", robot, 64, False, True) == mppi
-        assert ts.resolve_engine("kernel", robot, 10, 5) == "kernel"  # explicit engines stay (W7)
+        # explicit kernel engines take the plain path for a grad robot, as JAX's do (W7)
+        for engine in ("kernel", "fused"):
+            assert ts.resolve_engine(engine, robot, 10, 5) == (kin if grad else engine)
+            assert ts.resolve_dynamic_engine(engine, robot, 5) == (dyn if grad else engine)
+            assert ts.resolve_mppi_engine(engine, robot, 64, False, True) == (mppi if grad else engine)
 
 
 def test_explicit_kernel_engines_refuse_a_grad_robot():
