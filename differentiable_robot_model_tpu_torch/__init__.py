@@ -4,17 +4,25 @@ package beside it, for NVIDIA Hopper GPUs.
 Same layout as the JAX package (`models/`, `ops/`, `trajopt/`), with the
 hand-written CUDA kernels' wrappers in `ops/kernels/` and their sources in
 `csrc/`. The port imports neither JAX nor the JAX package; it ships its own
-copies of the bundled URDFs in `robot_data/`. So far it serves the
-kinematic MPC path (`trajopt.mpc.make_mpc_step_batch`), the torque-space
-MPC path (`trajopt.mpc.make_dynamic_mpc_step_batch`, `run_closed_loop`),
-with the scalar dynamics under the latter in `ops/dynamics_scalar.py`, the
-sampling (MPPI) MPC path (`trajopt.mpc.make_mppi_mpc_step_batch`,
-`make_mppi_mpc_step`), the robot-model API
+copies of the bundled URDFs in `robot_data/`. It serves all that the JAX
+package does: the kinematic MPC path (`trajopt.mpc.make_mpc_step_batch`),
+the torque-space MPC path (`trajopt.mpc.make_dynamic_mpc_step_batch`,
+`run_closed_loop`), with the scalar dynamics under the latter in
+`ops/dynamics_scalar.py`, the sampling (MPPI) MPC path
+(`trajopt.mpc.make_mppi_mpc_step_batch`, `make_mppi_mpc_step`), the
+second-order (iLQR) MPC path (`trajopt.solvers.ilqr_batch`,
+`trajopt.mpc.make_ilqr_mpc_step`), the robot-model API
 (`DifferentiableRobotModel.compute_*`, inverse dynamics on the RNEA
-kernel) with the lie, spatial, kinematics and dynamics ops under it, and
-the differentiable state-only rollout
+kernel) with the lie, spatial, kinematics and dynamics ops under it,
+system identification (`make_link_param_learnable`,
+`models/parametrizations.py`), the differentiable state-only rollout
 (`ops.kernels.rollout.dynamic_rollout`) beside the one with the
-end-effector trajectory (`dynamic_rollout_ee`).
+end-effector trajectory (`dynamic_rollout_ee`), heterogeneous fleets
+(`models/fleet.py`), scenario sharding, data-parallel training and the
+horizon-sharded Riccati over torch.distributed (`parallel/`: one process a
+GPU, `torchrun --nproc_per_node N`), and the profiling utilities
+(`utils/profiling.py`). The solvers differentiate w.r.t. the robot and
+their inputs (q0, qd0, goals, warm starts).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`, and raise
 when no CUDA device exists. Float32 work runs in full float32: the port's

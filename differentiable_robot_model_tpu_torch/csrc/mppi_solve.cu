@@ -19,8 +19,9 @@
 // lanes. The nominal a [H*D] and the scenario's constants (H0, tau_ref,
 // q0, qd0, goal) sit in shared memory. The noise comes from Philox
 // (philox.cuh) at the counter (scenario, iteration, (h*D + d) / 2, sample)
-// and is drawn twice per iteration, for the rollout and again for the
-// update, so no H*D*K noise tensor is stored (it would be 46 MB at iiwa
+// under the solve's key, or at scenario word 0 under the scenario's own key
+// (MppiParams::keys), and is drawn twice per iteration, for the rollout and
+// again for the update, so no H*D*K noise tensor is stored (it would be 46 MB at iiwa
 // H=50, K=128, B=256). The update reduces the H*D entries 32 at a time:
 // warp shuffles, one shared-memory pass across the warps. Inputs are
 // scenario-minor: q0, qd0, tau_ref [D, B], goal [3, B], H0 [D*D, B], a0
@@ -52,6 +53,11 @@ struct MppiParams {
   int precond;  // tau = tau_ref + H0 a (else tau_ref + a)
   int effort;   // clip each applied torque to +-emax
   uint32_t key0, key1;
+  // Per-scenario keys [B, 2] on the device, or null: scenario b then draws
+  // under (keys[2b], keys[2b + 1]) at scenario word 0, the stream of a
+  // one-scenario launch under that key; with null, under (key0, key1) at
+  // scenario word b.
+  const uint32_t* keys;
   // Rounded to the working type on the host: f(f(gw^2) / (3 H)),
   // f(f(ew) / (H D)), f(noise_sigma), f(temperature).
   double cgoal_w, ceff_w, sigma, temperature;
@@ -142,6 +148,9 @@ __global__ void __launch_bounds__(MAXT)
 
   const bool valid = k < P.K;
   const bool perturbed = valid && k > 0;
+  const uint32_t key0 = P.keys ? P.keys[2 * b] : P.key0;
+  const uint32_t key1 = P.keys ? P.keys[2 * b + 1] : P.key1;
+  const uint32_t scen = P.keys ? 0u : uint32_t(b);
   const T sigma = T(P.sigma), temp = T(P.temperature);
   const T cgoal_w = T(P.cgoal_w), ceff_w = T(P.ceff_w);
 
@@ -153,7 +162,7 @@ __global__ void __launch_bounds__(MAXT)
     const int pair = i >> 1;
     if (pair != cached) {
       const DrmPhilox4 r =
-          drm_philox4x32(uint32_t(b), uint32_t(t), uint32_t(pair), uint32_t(k), P.key0, P.key1);
+          drm_philox4x32(scen, uint32_t(t), uint32_t(pair), uint32_t(k), key0, key1);
       z0 = drm_box_muller<T>(r.w[0], r.w[1]);
       z1 = drm_box_muller<T>(r.w[2], r.w[3]);
       cached = pair;

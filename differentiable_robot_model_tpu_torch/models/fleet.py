@@ -44,7 +44,7 @@ from ..ops.dynamics import mass_matrix_given_fk, rnea_given_fk, sym_solve
 from ..ops.kinematics import joint_local_transforms, world_joint_subspaces
 from ..ops.lie import cross
 from ..trajopt.rollout import _clip, _positive_or_inf, clamp_affine_q_traj
-from ..trajopt.solvers import _adam_loop, solve_dynamic_adam_batch, solve_kinematic_adam_batch
+from ..trajopt.solvers import _adam_loop, _needs_graph, solve_dynamic_adam_batch, solve_kinematic_adam_batch
 from .structs import RobotStruct, resolve_device
 
 
@@ -376,7 +376,7 @@ def solve_fleet_kinematic_adam(
     (goal_weight (p - goal))^2 along the clamp-affine rollout. The whole
     solve is differentiable w.r.t. any fleet tensor (identification through
     the solve)."""
-    through = fleet.requires_grad or q0.requires_grad or goal_ee_pos.requires_grad
+    through = _needs_graph(fleet, q0, goal_ee_pos)
     goal = goal_ee_pos.unsqueeze(-2)
 
     def cost_fn(a):
@@ -420,7 +420,7 @@ def solve_fleet_dynamic_adam(
     absolute torques, mapped back through H0. Returns the applied torques
     [R, (B,) H, Dmax], exactly 0 on padded dofs. The whole solve is
     differentiable w.r.t. any fleet tensor."""
-    through = fleet.requires_grad or q0.requires_grad or goal_ee_pos.requires_grad
+    through = _needs_graph(fleet, q0, qd0, goal_ee_pos, init_actions)
     valid = _member_view(fleet.dof_valid, q0.dim() + 1)  # [R, (1,) 1, Dmax]
     n_real = fleet.dof_valid.sum(-1).reshape((-1,) + (1,) * (q0.dim() - 2))  # [R, (1,)]
     goal = goal_ee_pos.unsqueeze(-2)

@@ -16,6 +16,11 @@ The MPPI stream's layout, fixed once (csrc/philox.cuh holds the same):
     counter = (scenario, iteration, (h*D + d) // 2, sample)
     words 0, 1 -> the normal of the even entry h*D + d, words 2, 3 -> the odd
 
+or, keyed per scenario (keys [B, 2], one a scenario: `scenario_keys`),
+scenario b draws under keys[b] at scenario word 0, the stream a
+one-scenario solve under keys[b] draws, wherever b sits in the batch (so a
+scenario draws the same noise on any number of ranks).
+
 A uniform is `(bits >> 8) * 2^-24 + 2^-25` in the working type, as
 `_uniforms` makes it (24 random bits; in float32 the top value rounds to 1,
 as on the TPU), and a normal is `sqrt(-2 log u1) * cos(2 pi u2)`, the
@@ -23,8 +28,8 @@ cosine half of Box-Muller, as `_normal_tile` makes it. Sample 0 of every
 scenario is the unperturbed nominal: the solvers zero its noise.
 
 Keys are int64 tensors whose last axis holds the two 32-bit words; they
-live on the CPU (`prng_key`, `split_key`). Nothing here keeps a global
-state.
+live on the CPU (`prng_key`, `split_key`); per-scenario keys may live on
+the device. Nothing here keeps a global state.
 
 Torch has no unsigned 32x32 -> 64-bit product that fits int64, so the
 multiplies are built from 16-bit limbs, each partial product below 2^34.
@@ -96,6 +101,25 @@ def key_words(key) -> tuple[int, int]:
     return k0, k1
 
 
+def per_scenario(key) -> bool:
+    """Whether `key` is one key a scenario ([B, 2]) rather than one key."""
+    return isinstance(key, torch.Tensor) and key.dim() == 2
+
+
+def scenario_keys(keys: torch.Tensor, n_scenarios: int) -> torch.Tensor:
+    """Checks per-scenario keys, int64 [B, 2] with B = n_scenarios, and
+    returns them. Their words are checked to be 32-bit unsigned where they
+    lie on the CPU; on the device that would read them back to the host,
+    and only their low 32 bits are used."""
+    if keys.dtype != torch.int64 or tuple(keys.shape) != (n_scenarios, 2):
+        raise ValueError(f"per-scenario keys are int64 [{n_scenarios}, 2], got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    if keys.device.type == "cpu" and keys.numel() and not bool(
+            ((keys >= 0) & (keys <= MASK32)).all()):
+        raise ValueError("key words must be 32-bit unsigned")
+    return keys
+
+
 def prng_key(seed: int) -> torch.Tensor:
     """A key from a 64-bit seed: int64 [2] on the CPU."""
     return torch.tensor(key_words(int(seed)), dtype=torch.int64)
@@ -117,13 +141,18 @@ def split_key(key: torch.Tensor, n: int | None = None) -> torch.Tensor:
 def mppi_normals(key, n_scenarios: int, iteration: int, horizon: int, n_dofs: int,
                  n_samples: int, dtype: torch.dtype, device=None) -> torch.Tensor:
     """The standard normals of one MPPI iteration, [H, D, B, K], from the
-    stream laid out in this module's docstring (sample 0 included: the
-    solvers zero it)."""
-    k0, k1 = key_words(key)
+    stream laid out in this module's docstring under one key (scenario b
+    at scenario word b) or per-scenario keys [B, 2] (scenario b under
+    keys[b] at scenario word 0); sample 0 included: the solvers zero it."""
     HD = horizon * n_dofs
     pairs = (HD + 1) // 2
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-    b = ar(n_scenarios)[:, None, None]
+    if per_scenario(key):
+        kw = scenario_keys(key, n_scenarios).to(device)
+        k0, k1, b = kw[:, 0, None, None], kw[:, 1, None, None], 0
+    else:
+        k0, k1 = key_words(key)
+        b = ar(n_scenarios)[:, None, None]
     p = ar(pairs)[None, :, None]
     k = ar(n_samples)[None, None, :]
     w0, w1, w2, w3 = philox4x32((b, iteration & MASK32, p, k), (k0, k1))

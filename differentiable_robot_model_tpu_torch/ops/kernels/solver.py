@@ -611,7 +611,7 @@ class _MppiParams(ctypes.Structure):
     _fields_ = [
         ("H", ctypes.c_int), ("n_iters", ctypes.c_int), ("K", ctypes.c_int),
         ("precond", ctypes.c_int), ("effort", ctypes.c_int),
-        ("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32),
+        ("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32), ("keys", ctypes.c_void_p),
         ("cgoal_w", ctypes.c_double), ("ceff_w", ctypes.c_double),
         ("sigma", ctypes.c_double), ("temperature", ctypes.c_double),
     ]
@@ -628,7 +628,7 @@ def mppi_constants(dtype: torch.dtype, H: int, D: int, goal_weight: float, effor
                 temperature=r(temperature))
 
 
-def _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters, n_samples):
+def _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, key, n_iters, n_samples):
     if n_samples < 1 or n_samples > MAX_SAMPLES:
         raise ValueError(f"mppi_solve takes 1 to {MAX_SAMPLES} samples, got {n_samples}")
     if n_iters < 0:
@@ -645,6 +645,10 @@ def _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters, n_sample
     for name, x, shape in named:
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {list(shape)}, got {tuple(x.shape)}")
+    if rng.per_scenario(key):
+        rng.scenario_keys(key, B)
+    else:
+        rng.key_words(key)
     check_same(robot, [(n, x) for n, x, _ in named])
     check_constant_robot(robot)
     return H, D, B, [(n, x) for n, x, _ in named]
@@ -658,12 +662,14 @@ def mppi_solve_reference(
 ):
     """Plain version of K10 `mppi_solve`: the MPPI iterations of the plain
     solver (trajopt/solvers.py `_mppi_iterate`, without adaptation) on the
-    same Philox stream (ops/kernels/rng.py), with the K samples of every
+    same Philox stream (ops/kernels/rng.py; one key or per-scenario keys,
+    as `mppi_solve` takes them), with the K samples of every
     scenario on [B K] lanes of the plain rollout `dyn_rollout_ee_fwd_reference`.
     Returns (tau [H, D, B] applied torques, costs [n_iters+1, B])."""
     from ...trajopt.solvers import _mppi_iterate  # trajopt.solvers imports this module
 
-    H, D, B, _ = _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters, n_samples)
+    H, D, B, _ = _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, key, n_iters,
+                                n_samples)
     normals = lambda t: rng.mppi_normals(key, B, t, H, D, n_samples, q0T.dtype, q0T.device)
     ee_traj = lambda q, qd, tau: dyn_rollout_ee_fwd_reference(
         robot, q, qd, tau, dt, ee_link_idx, use_damping)[2]
@@ -719,7 +725,9 @@ def mppi_solve(
     (wrapper `mppi_solve_fused`): per scenario, n_iters times, K =
     n_samples perturbed action sequences a + eps (eps = noise_sigma times
     Philox normals, rng.py's stream under `key`, an int or a key tensor;
-    sample 0 unperturbed), their rollouts of tau = tau_ref + H0 (a + eps)
+    or keyed per scenario, `key` int64 [B, 2] (on the card or the host):
+    scenario b draws under key[b] what a one-scenario solve under key[b]
+    draws; sample 0 unperturbed), their rollouts of tau = tau_ref + H0 (a + eps)
     with the goal + effort cost, the softmax weights at `temperature`, and
     the nominal update. q0T, qd0T, tau_refT [D, B], goalT [3, B], H0
     [D, D, B] or None, aT0 [H, D, B] the nominal's start (acceleration
@@ -733,7 +741,7 @@ def mppi_solve(
     it); the inputs and outputs are a few kilobytes per scenario. For
     K <= 256 the instantiation is `kernel_variant(robot)`'s.
     """
-    H, D, B, named = _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, n_iters,
+    H, D, B, named = _validate_mppi(robot, q0T, qd0T, goalT, tau_refT, H0, aT0, key, n_iters,
                                     n_samples)
     args = (robot, q0T, qd0T, goalT, tau_refT, H0, aT0, key, ee_link_idx, n_iters, n_samples, dt,
             temperature, noise_sigma, goal_weight, effort_weight, use_damping,
@@ -743,12 +751,18 @@ def mppi_solve(
     for name, x in named:
         _check_cuda(x, name)
     dtype, dev = q0T.dtype, q0T.device
-    k0, k1 = rng.key_words(key)
+    keys = None
+    if rng.per_scenario(key):  # the low 32 bits of each word, read as uint32 on the card
+        k0 = k1 = 0
+        keys = key.to(device=dev).to(torch.int32).contiguous()
+    else:
+        k0, k1 = rng.key_words(key)
     tree = tree_struct(robot, StepFlags(dt, use_damping))
     ch = chain_struct(robot, ee_link_idx)
     c = mppi_constants(dtype, H, D, goal_weight, effort_weight, noise_sigma, temperature)
     params = _MppiParams(H=H, n_iters=n_iters, K=n_samples, precond=int(H0 is not None),
-                         effort=int(respect_effort_limits), key0=k0, key1=k1, **c)
+                         effort=int(respect_effort_limits), key0=k0, key1=k1,
+                         keys=None if keys is None else keys.data_ptr(), **c)
     tau = torch.empty((H, D, B), dtype=dtype, device=dev)
     costs = torch.empty((n_iters + 1, B), dtype=dtype, device=dev)
     if B:

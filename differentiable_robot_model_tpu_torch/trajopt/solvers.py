@@ -9,8 +9,10 @@ the steps along action directions that barely move the end effector.
 
 Every solver takes its plain engine for a robot whose tensors require grad,
 whatever engine it is given (the JAX package's kernel engines run their
-plain path for a traced robot); the Adam solvers then stay differentiable
-w.r.t. the robot through the whole solve (identification through it).
+plain path for a traced robot); the Adam solvers do so too where q0, qd0,
+the goals or the warm start require grad, and then stay differentiable
+w.r.t. the robot and those inputs through the whole solve (identification
+through it, gradients w.r.t. a solve's inputs).
 
 `solve_kinematic_adam_batch` has three engines:
 - "scalar": plain torch with autograd through the scalar-expanded FK;
@@ -32,7 +34,9 @@ iterative LQR over generic batched callables (the batch contract heads
 its section), with the torque plant on the rollout kernel K5
 (`make_plant_dynamics`) and its dynamics Jacobians from the rollout
 adjoint's phase A kernel (`make_ift_f_AB`); the Riccati recursion and the
-line search are eager PyTorch.
+line search are eager PyTorch. `ilqr_batch(mesh=)` shards the scenarios
+over a mesh's ranks and `ilqr(riccati="horizon_sharded")` the backward
+pass over them (`parallel/`).
 """
 
 from __future__ import annotations
@@ -106,14 +110,19 @@ def _adam_update(x, g, m, v, t, lr, eps, eps_root=1e-8):
     return x + (-lr) * (m_hat / (torch.sqrt(v_hat + eps_root) + eps)), m, v
 
 
+def _needs_graph(robot, *inputs) -> bool:
+    """Whether a solve must keep its graph: the robot's (or fleet's) tensors
+    or any of the given inputs (None for an absent one) require grad."""
+    return robot.requires_grad or any(x is not None and x.requires_grad for x in inputs)
+
+
 def _adam_loop(cost_fn, actions, n_iters: int, lr: float, eps: float, through: bool):
     """n_iters Adam steps (`_adam_update`) on `actions` over cost_fn(a) ->
     (the scalar to differentiate, the costs to record). Returns the actions
-    and the recorded costs before each step. With `through` (a robot whose
-    tensors require grad: identification through the solve) every gradient
-    and update keeps its graph, so the whole loop stays differentiable
-    w.r.t. the robot, as the JAX package's scanned loop is; otherwise each
-    step runs detached."""
+    and the recorded costs before each step. With `through` (`_needs_graph`:
+    a robot or an input that requires grad) every gradient and update keeps
+    its graph, so the whole loop stays differentiable w.r.t. them, as the
+    JAX package's scanned loop is; otherwise each step runs detached."""
     m = torch.zeros_like(actions)
     v = torch.zeros_like(actions)
     history = []
@@ -145,11 +154,11 @@ def solve_kinematic_adam(
     the reference's Adam loop (run_kinematic_trajectory_opt.py:88-99) over
     the dense goal cost of the kinematic rollout."""
     D = robot.n_dofs
-    actions = (
-        init_actions.detach().clone()
-        if init_actions is not None
-        else torch.zeros((horizon, D), dtype=robot.dtype, device=robot.device)
-    )
+    through = _needs_graph(robot, q0, goal_ee_pos, init_actions)
+    if init_actions is None:
+        actions = torch.zeros((horizon, D), dtype=robot.dtype, device=robot.device)
+    else:
+        actions = init_actions.clone()
 
     def cost_fn(a):
         ee_traj, _ = kinematic_rollout(
@@ -158,7 +167,6 @@ def solve_kinematic_adam(
         )
         return dense_goal_cost(goal_ee_pos, ee_traj, goal_weight)
 
-    through = robot.requires_grad
     actions, costs = _adam_loop(lambda a: (cost_fn(a),) * 2, actions, n_iters, lr, eps, through)
     with torch.set_grad_enabled(through):
         final = cost_fn(actions)
@@ -166,16 +174,18 @@ def solve_kinematic_adam(
     return TrajOptResult(actions, final, history)
 
 
-def resolve_engine(fk_impl: str, robot: RobotStruct, horizon: int, n_iters: int) -> str:
+def resolve_engine(fk_impl: str, robot: RobotStruct, horizon: int, n_iters: int,
+                   grad: bool = False) -> str:
     """The engine `fk_impl` names, resolved for this robot once, before any
     launch: the plain "scalar" on the CPU ("auto") and, whatever `fk_impl`
-    names, for a robot whose tensors require grad (the kernels treat the
-    robot as constant; the JAX package likewise runs its plain
-    differentiable path for a traced robot), else "fused" for float32 and
-    "kernel" ("auto"), or the engine named."""
+    names, for a robot whose tensors require grad or with `grad` (an input
+    of the solve requires grad: the kernels are no autograd nodes for it;
+    the JAX package likewise runs its plain differentiable path for a
+    traced robot), else "fused" for float32 and "kernel" ("auto"), or the
+    engine named."""
     if fk_impl not in ENGINES:
         raise ValueError(f"fk_impl must be one of {ENGINES}, got {fk_impl!r}")
-    if robot.requires_grad:
+    if grad or robot.requires_grad:
         return "scalar"
     if fk_impl != "auto":
         return fk_impl
@@ -205,20 +215,22 @@ def solve_kinematic_adam_batch(
     minor), the layout of the kernels' boundary; the horizon integration is
     the clamp-affine scan and all B x H configurations go through one FK
     call per Adam iteration. q0 is clipped to the limits first. For a
-    robot whose tensors require grad the engine is "scalar" and the whole
-    solve (every Adam step and the final cost) stays differentiable
-    w.r.t. the robot, as the JAX package's is.
+    robot whose tensors require grad, or a q0, goals or warm start that
+    does, the engine is "scalar" and the whole solve (every Adam step and
+    the final cost) stays differentiable w.r.t. them, as the JAX package's
+    is.
     """
     B, D = q0.shape
     H = horizon
-    engine = resolve_engine(fk_impl, robot, H, n_iters)
+    through = _needs_graph(robot, q0, goal_ee_pos, init_actions)
+    engine = resolve_engine(fk_impl, robot, H, n_iters, grad=through)
 
     lo = robot.limit_lower[:, None, None]  # [D, 1, 1]
     hi = robot.limit_upper[:, None, None]
     q0T = torch.minimum(torch.maximum(q0.T, lo[:, 0]), hi[:, 0]).contiguous()  # [D, B]
     goalT = goal_ee_pos.T.contiguous()  # [3, B]
     if init_actions is not None:
-        aT0 = init_actions.detach().to(robot.dtype).permute(2, 1, 0)  # [D, H, B]
+        aT0 = init_actions.to(robot.dtype).permute(2, 1, 0)  # [D, H, B]
     else:
         aT0 = torch.zeros((D, H, B), dtype=robot.dtype, device=q0.device)
 
@@ -243,7 +255,6 @@ def solve_kinematic_adam_batch(
         cost_b = torch.mean(err * err, dim=(0, 1))  # [B], mean over 3*H terms
         return torch.sum(cost_b), cost_b
 
-    through = robot.requires_grad
     aT, costs = _adam_loop(cost_fn, aT0.clone(memory_format=torch.contiguous_format), n_iters, lr,
                            eps, through)
     with torch.set_grad_enabled(through):
@@ -282,15 +293,17 @@ def solve_dynamic_adam(
     squared torque deltas, and with `respect_effort_limits` the URDF effort
     box on every applied torque. `init_actions` are absolute torques [H, D],
     mapped back to deltas through H(q0). Returns the applied torques [H, D],
-    the final cost and the cost before each update.
+    the final cost and the cost before each update; differentiable w.r.t.
+    the robot and the inputs wherever they require grad.
     """
     D = robot.n_dofs
     H = horizon
+    through = _needs_graph(robot, q0, qd0, goal_ee_pos, init_actions)
     zeros = torch.zeros_like(q0)
     tau_ref = rnea_scalar(robot, q0, zeros, zeros)  # [D]
     H0 = mass_matrix_scalar(robot, q0) if precondition else None
     if init_actions is not None:
-        dtau0 = init_actions.detach().to(robot.dtype) - tau_ref  # [H, D]
+        dtau0 = init_actions.to(robot.dtype) - tau_ref  # [H, D]
         actions = dtau0 if H0 is None else ldl_solve_scalar(H0, dtau0.T).T
     else:
         actions = torch.zeros((H, D), dtype=robot.dtype, device=q0.device)
@@ -316,7 +329,6 @@ def solve_dynamic_adam(
         err = goal_weight * (p - goal_ee_pos[:, None])
         return torch.mean(err * err) + effort_weight * torch.mean(dtau * dtau)
 
-    through = robot.requires_grad
     actions, costs = _adam_loop(lambda a: (cost_fn(a),) * 2, actions, n_iters, lr, eps, through)
     with torch.set_grad_enabled(through):
         final = cost_fn(actions)
@@ -325,15 +337,17 @@ def solve_dynamic_adam(
     return TrajOptResult(taus, final, history)
 
 
-def resolve_dynamic_engine(rollout_impl: str, robot: RobotStruct, n_iters: int) -> str:
+def resolve_dynamic_engine(rollout_impl: str, robot: RobotStruct, n_iters: int,
+                           grad: bool = False) -> str:
     """The engine `rollout_impl` names, resolved for this robot once, before
     any launch: the plain "scan" on the CPU ("auto") and, whatever
-    `rollout_impl` names, for a robot whose tensors require grad (as the
-    JAX package's "pallas" and "fused" run its scan for a traced robot),
-    else "fused" for float32 and "kernel" ("auto"), or the engine named."""
+    `rollout_impl` names, for a robot whose tensors require grad or with
+    `grad` (an input of the solve requires grad; as the JAX package's
+    "pallas" and "fused" run its scan for a traced robot), else "fused" for
+    float32 and "kernel" ("auto"), or the engine named."""
     if rollout_impl not in DYNAMIC_ENGINES:
         raise ValueError(f"rollout_impl must be one of {DYNAMIC_ENGINES}, got {rollout_impl!r}")
-    if robot.requires_grad:
+    if grad or robot.requires_grad:
         return "scan"
     if rollout_impl != "auto":
         return rollout_impl
@@ -377,19 +391,21 @@ def solve_dynamic_adam_batch(
     through H0. Returns the applied torques [B, H, D] (clipped with
     `respect_effort_limits`), the final costs and the cost before each
     update. Every tensor inside is dof-major ([D, ..., B]). For a robot
-    whose tensors require grad the engine is "scan" and the whole solve
-    (tau_ref, H0, the warm start, every Adam step and the final cost)
-    stays differentiable w.r.t. the robot, as the JAX package's is.
+    whose tensors require grad, or a q0, qd0, goals or warm start that
+    does, the engine is "scan" and the whole solve (tau_ref, H0, the warm
+    start, every Adam step and the final cost) stays differentiable w.r.t.
+    them, as the JAX package's is.
     """
     B, D = q0.shape
     H = horizon
-    engine = resolve_dynamic_engine(rollout_impl, robot, n_iters)
+    through = _needs_graph(robot, q0, qd0, goal_ee_pos, init_actions)
+    engine = resolve_dynamic_engine(rollout_impl, robot, n_iters, grad=through)
     q0T = q0.T.contiguous()
     qd0T = qd0.T.contiguous()
     goalT = goal_ee_pos.T.contiguous()
     init_tauT = None
     if init_actions is not None:
-        init_tauT = init_actions.detach().to(robot.dtype).permute(1, 2, 0).contiguous()
+        init_tauT = init_actions.to(robot.dtype).permute(1, 2, 0).contiguous()
     prologue = dyn_prologue_reference if engine == "scan" else dyn_prologue
     tau_refT, H0, aT0 = prologue(robot, q0T, init_tauT, H, precondition)
 
@@ -425,7 +441,6 @@ def solve_dynamic_adam_batch(
         cost_b = torch.mean(err * err, dim=(0, 1)) + effort_weight * torch.mean(dtau * dtau, dim=(0, 1))
         return torch.sum(cost_b), cost_b
 
-    through = robot.requires_grad
     aT, costs = _adam_loop(cost_fn, aT0, n_iters, lr, eps, through)
     with torch.set_grad_enabled(through):
         _, final_cost = cost_fn(aT)
@@ -538,7 +553,8 @@ def _mppi_dof_major(robot, q0, qd0, goal_ee_pos, ee_link_idx, horizon, key, init
                     adapt_temperature, ess_target_frac, normals=None):
     """B solves on one engine from batch-major inputs: (tau [H, D, B], cost
     [B], history [n_iters, B]). Scenario b draws its noise at counter word
-    b of `key`'s stream, unless `normals` is given."""
+    b of `key`'s stream, or under its own key with per-scenario keys [B,
+    2] (ops/kernels/rng.py), unless `normals` is given."""
     B, D = q0.shape
     H = horizon
     q0T, qd0T, goalT = (x.T.contiguous() for x in (q0, qd0, goal_ee_pos))
@@ -660,7 +676,13 @@ def solve_dynamic_mppi_batch(
     """B independent `solve_dynamic_mppi` solves at once; results stack on
     axis 0 (actions [B, H, D], cost [B], cost_history [B, n_iters]).
     Scenario b draws its noise from `key`'s Philox stream at counter word b,
-    so every scenario has its own noise and all derive from one key.
+    so every scenario has its own noise and all derive from one key. Or
+    `key` holds one key a scenario, int64 [B, 2] (`rng.split_key(key, B)`,
+    on the host or the card): scenario b then draws under key[b] the noise
+    `solve_dynamic_mppi` under key[b] draws, wherever b sits in the batch,
+    on every engine (the counterpart of the JAX package's vmap of
+    `solve_dynamic_mppi` over keys, which `parallel.mesh.sharded_mppi`
+    runs).
 
     Engines: "scan", "kernel" (K7 on [H, D, K B] lanes once per iteration),
     and "fused": the whole solve (noise, the K rollouts, the softmax
@@ -1080,9 +1102,18 @@ def ilqr_batch(
     dict of per-iteration internals, as the JAX package's `ilqr` gives them
     per scenario: `alpha_idx`, `improved`, `lam` (after the update),
     `k_norm` [B, iters], `ls_costs` [B, iters, n_alphas] and `us_iter` [B,
-    iters, H, m]. `mesh` (sharding over scenarios) is not ported yet
-    (ROADMAP queue 1 item 6) and raises; so does `riccati="horizon_sharded"`,
-    which does not compose with a scenario batch.
+    iters, H, m].
+
+    With `mesh` (a 1-D `parallel.mesh.make_mesh`), x0s and us_init are
+    sharded over its ranks (DTensors `Shard(0)`, or whole tensors, sharded
+    from rank 0), each rank solves its own scenarios with no collective,
+    and every output is a DTensor sharded likewise (`full_tensor()`
+    gathers it). The callables then see the local scenarios only: data
+    they hold per scenario must be this rank's block. On the card the
+    torque plant (K5) and the IFT Jacobians (the replay kernel) launch on
+    each rank's scenarios as they do unsharded.
+    `riccati="horizon_sharded"` does not compose with a scenario batch and
+    raises: use `ilqr` per scenario.
 
     Each iteration's parts run under `torch.profiler` spans for a trace to
     read: "ilqr.backward_pass" (with "ilqr.linearize" inside),
@@ -1091,26 +1122,37 @@ def ilqr_batch(
     if riccati == "horizon_sharded":
         raise ValueError("horizon_sharded does not compose with the scenario batch; use "
                          "ilqr() per scenario or riccati='parallel' here")
-    if mesh is not None:
-        raise NotImplementedError("ilqr_batch over a device mesh needs parallel/mesh.py, "
-                                  "not ported yet (ROADMAP queue 1 item 6)")
-    del axis_name
     if riccati not in RICCATI:
         raise ValueError(f"riccati must be one of {RICCATI}, got {riccati!r}")
+    if mesh is not None:
+        from torch.utils._pytree import tree_map
+
+        from ..parallel.mesh import _local, _wrap  # parallel.mesh imports this module
+
+        out = ilqr_batch(dynamics, cost, final_cost, _local(mesh, x0s), _local(mesh, us_init),
+                         n_iters=n_iters, reg=reg, line_search_alphas=line_search_alphas,
+                         riccati=riccati, control_bounds=control_bounds, linearize=linearize,
+                         diagnostics=diagnostics)
+        return tree_map(lambda x: _wrap(mesh, x), out)
     with torch.no_grad():
         return _ilqr(dynamics, cost, final_cost, x0s, us_init, n_iters, reg, line_search_alphas,
                      riccati, control_bounds, linearize, diagnostics)
 
 
-def _backward_pass(linearize, riccati, xs, us, lam):
+def _backward_pass(linearize, riccati, xs, us, lam, riccati_mesh=None):
     """The feedback gains (ks [H, B, m], Ks [H, B, m, n]) about (xs, us)."""
     with torch.profiler.record_function("ilqr.linearize"):
         A, B, lx, lu, lxx, luu, lux, Vx, Vxx = linearize(xs, us)
     m = us.shape[-1]
     lam_eye = lam[:, None, None] * torch.eye(m, dtype=us.dtype, device=us.device)
+    # lam I on Quu is lam I on luu throughout
     if riccati == "parallel":
-        # lam I on Quu is lam I on luu throughout
         return _parallel_riccati_gains(A, B, lx, lu, lxx, luu + lam_eye, lux, Vx, Vxx)
+    if riccati == "horizon_sharded":
+        from ..parallel.horizon import riccati_gains_horizon_sharded  # it imports this module
+
+        return riccati_gains_horizon_sharded(riccati_mesh, A, B, lx, lu, lxx, luu + lam_eye, lux,
+                                             Vx, Vxx)
     ks, Ks = [None] * len(us), [None] * len(us)
     for t in reversed(range(len(us))):
         At, Bt = A[t], B[t]
@@ -1130,7 +1172,7 @@ def _backward_pass(linearize, riccati, xs, us, lam):
 
 
 def _ilqr(dynamics, cost, final_cost, x0s, us_init, n_iters, reg, line_search_alphas, riccati,
-          control_bounds, linearize, diagnostics):
+          control_bounds, linearize, diagnostics, riccati_mesh=None):
     B_, H, m = us_init.shape
     n = x0s.shape[-1]
     dtype, dev = us_init.dtype, us_init.device
@@ -1165,7 +1207,7 @@ def _ilqr(dynamics, cost, final_cost, x0s, us_init, n_iters, reg, line_search_al
     history, diag = [best_cost], []
     for _ in range(n_iters):
         with torch.profiler.record_function("ilqr.backward_pass"):
-            ks, Ks = _backward_pass(linearize, riccati, xs, us, lam)
+            ks, Ks = _backward_pass(linearize, riccati, xs, us, lam, riccati_mesh)
         with torch.profiler.record_function("ilqr.line_search"):
             xs_c, us_c, costs_c = forward_pass(xs, us, ks, Ks)
             costs_c = torch.where(torch.isnan(costs_c), torch.inf, costs_c)
@@ -1210,16 +1252,22 @@ def ilqr(
     follow the batch contract above the section (a scenario axis of 1).
     Returns ILQRResult(xs [H+1, n], us [H, m], cost [], cost_history
     [n_iters+1]) and, with `diagnostics=True`, the dict of per-iteration
-    internals of one scenario. `riccati="horizon_sharded"` (the backward
-    pass spread over a mesh's horizon axis) needs parallel/horizon.py, not
-    ported yet (ROADMAP queue 1 item 6), and raises."""
+    internals of one scenario. `riccati="horizon_sharded"` spreads the
+    backward pass over the ranks of `riccati_mesh` (a 1-D mesh of
+    `parallel.mesh.make_mesh`; `parallel.horizon.riccati_gains_horizon_
+    sharded`, with lam I on luu as the parallel form takes it): every rank
+    calls `ilqr` with the same arguments and gets the whole solve; it
+    raises without a mesh."""
     if riccati == "horizon_sharded":
-        raise NotImplementedError("riccati='horizon_sharded' needs parallel/horizon.py, not "
-                                  "ported yet (ROADMAP queue 1 item 6)")
-    del riccati_mesh
-    out = ilqr_batch(dynamics, cost, final_cost, x0[None], us_init[None], n_iters=n_iters,
-                     reg=reg, line_search_alphas=line_search_alphas, riccati=riccati,
-                     control_bounds=control_bounds, linearize=linearize, diagnostics=diagnostics)
+        if riccati_mesh is None:
+            raise ValueError("riccati='horizon_sharded' requires riccati_mesh")
+    elif riccati not in RICCATI:
+        raise ValueError(f"riccati must be one of {RICCATI + ('horizon_sharded',)}, "
+                         f"got {riccati!r}")
+    with torch.no_grad():
+        out = _ilqr(dynamics, cost, final_cost, x0[None], us_init[None], n_iters, reg,
+                    line_search_alphas, riccati, control_bounds, linearize, diagnostics,
+                    riccati_mesh)
     if not diagnostics:
         return ILQRResult(*(x[0] for x in out))
     return ILQRResult(*(x[0] for x in out[0])), {k: v[0] for k, v in out[1].items()}
