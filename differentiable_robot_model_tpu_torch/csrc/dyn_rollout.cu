@@ -69,7 +69,6 @@
 // registers), trees on `DrmGeneric` (ops/kernels/solver.py
 // `kernel_variant` picks).
 
-#include <atomic>
 #include <cstdint>
 
 #include "dyn_step.cuh"
@@ -466,24 +465,10 @@ inline unsigned blocks_for(int64_t B, int threads) { return unsigned((B + thread
 // scenario from B=12288 on (the MPPI "kernel" engine's K B = 32,768 lanes:
 // 0.53 against 1.57 ms), where its time has not yet begun to grow.
 constexpr int kOneThreadWarpsPerSM = 2;
-constexpr int kMaxDevices = 64;
-
-// The current card's SM count, read from the driver once per device.
-inline int sm_count() {
-  static std::atomic<int> known[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 1;
-  int sms = known[dev].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 1;
-    known[dev].store(sms, std::memory_order_relaxed);
-  }
-  return sms;
-}
 
 // The least batch at which a serial chain's forward runs one thread a
 // scenario on the current card (8,448 on 132 SMs); below it, the group step.
-inline int64_t one_thread_from() { return int64_t(kThreads) * kOneThreadWarpsPerSM * sm_count(); }
+inline int64_t one_thread_from() { return int64_t(kThreads) * kOneThreadWarpsPerSM * drm_sm_count(); }
 
 inline bool use_group(int64_t B) { return B < one_thread_from(); }
 

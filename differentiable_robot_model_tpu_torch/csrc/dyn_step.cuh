@@ -33,6 +33,7 @@
 // chain's step over a group of lanes (`drm_group_*`).
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 
 #include "chain.cuh"
@@ -646,131 +647,6 @@ struct DrmLocalRnea {
   __device__ __forceinline__ void n(int l, T* x) const { drm_copy<3>(st.n[l], x); }
 };
 
-// Where `drm_rr_rnea_reverse` with ROB writes one scenario's partials of
-// lamᵀ RNEA w.r.t. the robot's link constants (rnea.cu
-// `rnea_bwd_learnable`): for link l, 16 values from row 16 l of `out`, rows
-// `stride` apart: the joint origin's translation (3), its rpy angles (3),
-// the mass, the COM (3) and the six inertia entries the RNEA reads (xx, xy,
-// xz, yy, yz, zz). `q` holds the scenario's joint values (a revolute
-// joint's Rodrigues factor J is rebuilt from them) and dF[l] the partials
-// of link l's rpy rotation F w.r.t. roll, pitch and yaw (9 each, row major).
-template <typename T>
-struct DrmRobotSink {
-  const T* q;
-  const T (*dF)[27];
-  T* out;
-  int64_t stride;
-};
-
-// Link l's partials w.r.t. its constants for `drm_rr_rnea_reverse` with
-// ROB, from the cotangents its reverse sweeps hold at link l: fb, nb those
-// of the force and moment totals (per link), wcb, dwbl, dvbl those of the
-// motion carried in from the parent (w_c, dw_c, dv_c), accb = R dvbl and
-// c2b = accb x wp. The own force f = m a_c, a_c = dv + dw x c + w x (w x c),
-// and moment n = I dw + w x I w + c x f give the mass, COM and inertia
-// partials; t enters the carried acceleration and the parent's moment
-// (t x R f); the local rotation R = F J(q) enters the carried motion (Rᵀ x)
-// and the totals passed up (R f, R n), and F-bar = R-bar Jᵀ (R-bar for a
-// fixed joint, plus q t-bar aᵀ through F a for a prismatic one) is dotted
-// with dF/d(roll, pitch, yaw).
-template <typename T, class P, class S>
-__device__ __forceinline__ void drm_rr_robot_partials(
-    const Tree<T>& tr, const S& s, int l, const T* R, const T* t, const T* wl, const T* wp,
-    const T* dwp, const T* dvp, const T* wcb, const T* dwbl, const T* dvbl, const T* accb,
-    const T* c2b, const T (*fb)[3], const T (*nb)[3], const DrmRobotSink<T>& k) {
-  const TreeLink<T>& L = tr.link[l];
-  const int par = P::parent(tr, l), ty = P::type(tr, l);
-  T* o = k.out + int64_t(16 * l) * k.stride;
-  auto put = [&](int r, T v) { o[int64_t(r) * k.stride] = v; };
-  T dwl[3], dvl[3], fl[3], nl[3];
-  s.dw(l, dwl);
-  s.dv(l, dvl);
-  s.f(l, fl);
-  s.n(l, nl);
-  T fc[3], dwc[3], wc[3], wwc[3], fo[3], ac[3];
-  drm_cross(nb[l], L.com, fc);
-  drm_cross(dwl, L.com, dwc);
-  drm_cross(wl, L.com, wc);
-  drm_cross(wl, wc, wwc);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    fo[i] = fb[l][i] + fc[i];  // the own force's cotangent
-    ac[i] = dvl[i] + (dwc[i] + wwc[i]);
-  }
-  put(6, ac[0] * fo[0] + ac[1] * fo[1] + ac[2] * fo[2]);
-  T acb[3], fown[3], x1[3], x2[3], aw[3], x3[3], nw[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    acb[i] = fo[i] * L.mass;
-    fown[i] = ac[i] * L.mass;
-  }
-  drm_cross(fown, nb[l], x1);
-  drm_cross(acb, dwl, x2);
-  drm_cross(acb, wl, aw);
-  drm_cross(aw, wl, x3);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) put(7 + i, (x1[i] + x2[i]) + x3[i]);
-  // I's cotangent G = nb dwᵀ + (nb x w) wᵀ, folded onto the entries read
-  drm_cross(nb[l], wl, nw);
-  auto G = [&](int i, int j) { return nb[l][i] * dwl[j] + nw[i] * wl[j]; };
-  put(10, G(0, 0));
-  put(11, G(0, 1) + G(1, 0));
-  put(12, G(0, 2) + G(2, 0));
-  put(13, G(1, 1));
-  put(14, G(1, 2) + G(2, 1));
-  put(15, G(2, 2));
-  T fp[3], y1[3], y2[3], y3[3], tbar[3];
-  drm_rot_s(R, fl, fp);
-  drm_cross(fp, nb[par], y1);
-  drm_cross(accb, dwp, y2);
-  drm_cross(c2b, wp, y3);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    tbar[i] = y1[i] + (y2[i] + y3[i]);
-    put(i, tbar[i]);
-  }
-  T u[3], nt[3], c1[3], c2[3], c3[3], acc[3], Rb[9];
-  drm_cross(nb[par], t, nt);
-  drm_cross(dwp, t, c1);
-  drm_cross(wp, t, c2);
-  drm_cross(wp, c2, c3);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    u[i] = fb[par][i] + nt[i];
-    acc[i] = dvp[i] + (c1[i] + c3[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      Rb[3 * i + j] = ((wp[i] * wcb[j] + dwp[i] * dwbl[j]) + acc[i] * dvbl[j]) +
-                      (u[i] * fl[j] + nb[par][i] * nl[j]);
-  T Fb[9];
-  if (ty == DRM_REVOLUTE) {
-    T sn, cs, J[9];
-    drm_sincos(k.q[P::dof(tr, l)], &sn, &cs);
-    drm_rodrigues(L.a, cs, sn, J);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int m = 0; m < 3; ++m)
-        Fb[3 * i + m] = Rb[3 * i] * J[3 * m] + Rb[3 * i + 1] * J[3 * m + 1] + Rb[3 * i + 2] * J[3 * m + 2];
-  } else {
-    const T qv = ty == DRM_PRISMATIC ? k.q[P::dof(tr, l)] : T(0);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) Fb[3 * i + j] = Rb[3 * i + j] + (qv * tbar[i]) * L.a[j];
-  }
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    T acc_r = T(0);
-#pragma unroll
-    for (int e = 0; e < 9; ++e) acc_r = acc_r + Fb[e] * k.dF[l][9 * r + e];
-    put(3 + r, acc_r);
-  }
-}
-
 // (∂RNEA(q, qd, qdd)/∂(q, qd))ᵀ lam into jac[2D] (jac[k] the q_k partial,
 // jac[D + k] the qd_k one), with the tree's gravity and damping, by one
 // reverse sweep of the RNEA whose forward `s` holds (`DrmLocalRnea` or
@@ -785,13 +661,12 @@ __device__ __forceinline__ void drm_rr_robot_partials(
 // device function (ROADMAP F5). `unit` >= 0 says that lam is the unit
 // cotangent on that dof: on a serial chain the links up to its joint's
 // parent then carry no force cotangent, and their share of the sweeps (the
-// totals' reverse, the link forces' reverse) is skipped. With ROB, each
-// link's partials w.r.t. its constants go to `rob` (`drm_rr_robot_partials`),
-// straight to global memory as the sweep reaches the link.
-template <typename T, class P, class S, bool QDD = false, bool ROB = false>
+// totals' reverse, the link forces' reverse) is skipped. (rnea.cu
+// `learn_vjp` runs the same arithmetic in two sweeps, with the partials
+// w.r.t. the link constants.)
+template <typename T, class P, class S, bool QDD = false>
 __device__ __forceinline__ void drm_rr_rnea_reverse(const Tree<T>& tr, const S& s, const T* qd,
-                                                    const T* lam, T* jac, int unit = -1,
-                                                    const DrmRobotSink<T>* rob = nullptr) {
+                                                    const T* lam, T* jac, int unit = -1) {
   constexpr int NL = P::NL;
   const int n = P::links(tr), D = P::dofs(tr);
   // link l of a serial chain carries dof l - 1
@@ -945,8 +820,6 @@ __device__ __forceinline__ void drm_rr_rnea_reverse(const Tree<T>& tr, const S& 
       jac[d] = jac[d] + (L.Fa[0] * (tb[l][0] + (y1[0] + y2[0])) + L.Fa[1] * (tb[l][1] + (y1[1] + y2[1])) +
                          L.Fa[2] * (tb[l][2] + (y1[2] + y2[2])));
     }
-    if constexpr (ROB) drm_rr_robot_partials<T, P>(tr, s, l, R, t, wl, wp, dwp, dvp, wcb, dwb[l],
-                                                   dvb[l], accb, c2b, fb, nb, *rob);
   }
 }
 
@@ -1446,6 +1319,22 @@ __device__ __forceinline__ void drm_group_backward(const Tree<T>& tr,
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int i = 0; i <= j; ++i) M[drm_tri(j, i)] = drm_group_shfl<T, G>(Hrow[i], j);
+}
+
+// The current card's SM count, read from the driver once per device (1
+// where it cannot be read): the group forms' switches.
+#define DRM_MAX_DEVICES 64
+
+inline int drm_sm_count() {
+  static std::atomic<int> known[DRM_MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= DRM_MAX_DEVICES) return 1;
+  int sms = known[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 1;
+    known[dev].store(sms, std::memory_order_relaxed);
+  }
+  return sms;
 }
 
 // The instantiations of K4-K10, `rnea_bwd` and the prologue, by the code

@@ -23,16 +23,19 @@ id_impl="kernel" with learnables): the counterpart of the JAX package's
 `rnea_pallas` on a traced robot, whose second `pallas_call` reads the link
 constants as operands and whose VJP `_scalar_vjp` also gives the robot's
 cotangent. The host sends only a template of the topology and the flags
-(`tree_template`, cached per topology); every block builds the tree image
-from the link tensors on the card, so a training step reads nothing back.
-`rnea_bwd_learnable` writes each scenario's partials w.r.t. the link
-constants ([16 L + D, B]: per link trans, rot_angles, mass, com and the six
-inertia entries the RNEA reads; then the damping), and `torch.sum` over the
-batch reduces them: the same bits on every run. `rnea_learnable` is their
-autograd entry, differentiable w.r.t. (q, qd, qdd) and the robot's trans,
-rot_angles, mass, com, inertia_com and damping. Their plain versions are
-`rnea_fwd_reference` and `rnea_bwd_learnable_reference` (autograd through
-`rnea_scalar`).
+(`tree_template`, cached per topology); each block builds the tree image
+from the link tensors on the card once a launch, so a training step reads
+nothing back. `rnea_bwd_learnable` sums the partials w.r.t. the link
+constants over the scenarios on the card, in a fixed order (a warp's by
+shuffles, a block's warps, then the blocks' rows in a second small launch):
+the same bits on every run, and one row of the robot's cotangent a block of
+traffic, not a value a scenario. It writes the cotangent in its fields'
+layout (trans, rot_angles, mass, com, inertia_com with 0 on the three
+entries the RNEA does not read, damping; `robot_cotangent` takes views of
+it). `rnea_learnable` is their autograd entry, differentiable w.r.t. (q, qd,
+qdd) and the robot's trans, rot_angles, mass, com, inertia_com and damping.
+Their plain versions are `rnea_fwd_reference` and
+`rnea_bwd_learnable_reference` (autograd through `rnea_scalar`).
 
 On a CUDA tensor the wrappers launch the kernel or raise; they take the
 plain version only for tensors on the CPU. `rnea_bwd` and
@@ -45,6 +48,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -69,9 +73,6 @@ from .rollout import (
 ROBOT_FIELDS = ("trans", "rot_angles", "mass", "com", "inertia_com", "damping")
 # The learnable kernels' link tensors, in the order of csrc/rnea.cu `RobotArrays`.
 _LINK_TENSORS = ("trans", "rot_angles", "axis", "mass", "com", "inertia_com", "damping")
-# Per link, the rows of `rnea_bwd_learnable`'s partials: trans 0-2,
-# rot_angles 3-5, mass 6, com 7-9, the inertia entries read 10-15.
-LINK_ROWS = 16
 
 
 def _check_rnea(robot: RobotStruct, named):
@@ -136,7 +137,8 @@ def rnea_bwd_reference(robot: RobotStruct, q, qd, qdd, g, use_damping=True, incl
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    sizes = (ctypes.c_int64 * (3 + 2 * len(SERIAL_SHAPES)))()
+    n_shapes = 3 + 2 * len(SERIAL_SHAPES)
+    sizes = (ctypes.c_int64 * (n_shapes + 2))()
     lib.rnea_layout.argtypes = [ctypes.c_void_p]
     lib.rnea_layout.restype = None
     lib.rnea_layout(sizes)
@@ -147,15 +149,40 @@ def _configure(lib: ctypes.CDLL) -> None:
     )
     if tuple(sizes[:3]) != expect:
         raise RuntimeError(f"csrc/rnea.cu layout {tuple(sizes[:3])} != Python's {expect}")
-    _check_variants(sizes, 3, "csrc/rnea.cu")
+    _check_variants(sizes[:n_shapes], 3, "csrc/rnea.cu")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     n_link = len(_LINK_TENSORS)
     for name, n in (("rnea_fwd", 5), ("rnea_bwd", 8), ("rnea_fwd_learnable", 5 + n_link),
-                    ("rnea_bwd_learnable", 9 + n_link)):
+                    ("rnea_bwd_learnable", 10 + n_link)):
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{sfx}")
             fn.argtypes = [i] + [p] * n + [i64, p]
             fn.restype = ctypes.c_int
+    _LEARNABLE_LAYOUT[:] = sizes[n_shapes:]
+    lib.rnea_learnable_one_thread_from.argtypes = []
+    lib.rnea_learnable_one_thread_from.restype = i64
+
+
+# The fewest scenarios a block of a learnable launch takes and its most
+# blocks (the end of csrc/rnea.cu `rnea_layout`), read when the library loads.
+_LEARNABLE_LAYOUT = [0, 0]
+
+
+def learnable_rows(B: int) -> int:
+    """The rows of `rnea_bwd_learnable`'s per-block scratch for B > 0
+    scenarios: at least one a block of its grid, which is at most the most
+    blocks and at most one a tile of the fewest scenarios."""
+    fewest, most = _LEARNABLE_LAYOUT
+    return min(-(-B // fewest), most)
+
+
+def learnable_one_thread_from(device) -> int:
+    """The least batch at which the learnable forms run one thread a
+    scenario on a serial chain, on the CUDA `device`; below it each
+    scenario runs on a group of lanes, one a link (csrc/rnea.cu)."""
+    lib = build.load("rnea", _configure)
+    with torch.cuda.device(device):
+        return int(lib.rnea_learnable_one_thread_from())
 
 
 def _image_offsets(dtype) -> list:
@@ -352,28 +379,34 @@ def rnea_fwd_learnable(robot: RobotStruct, q, qd, qdd, use_damping=True, include
 rnea_fwd_learnable.launches = 0
 
 
-def robot_cotangent(robot: RobotStruct, rows: torch.Tensor) -> dict:
-    """{field: cotangent} for ROBOT_FIELDS from the partials summed over the
-    batch, [16 L + D] in `rnea_bwd_learnable`'s row order; the inertia
-    entries the RNEA does not read get 0."""
+def _cotangent_shapes(robot: RobotStruct) -> dict:
     L = robot.n_links
-    per_link = rows[:LINK_ROWS * L].reshape(L, LINK_ROWS)
-    xx, xy, xz, yy, yz, zz = per_link[:, 10:16].unbind(1)
-    z = torch.zeros_like(xx)
-    inertia = torch.stack([xx, xy, xz, z, yy, yz, z, z, zz], 1).reshape(L, 3, 3)
-    return {
-        "trans": per_link[:, 0:3], "rot_angles": per_link[:, 3:6], "mass": per_link[:, 6],
-        "com": per_link[:, 7:10], "inertia_com": inertia, "damping": rows[LINK_ROWS * L:],
-    }
+    return {"trans": (L, 3), "rot_angles": (L, 3), "mass": (L,), "com": (L, 3),
+            "inertia_com": (L, 3, 3), "damping": (robot.n_dofs,)}
+
+
+def robot_cotangent(robot: RobotStruct, flat: torch.Tensor) -> dict:
+    """{field: cotangent} for ROBOT_FIELDS, views of the flat cotangent
+    `rnea_bwd_learnable` writes: trans [L, 3], rot_angles [L, 3], mass [L],
+    com [L, 3], inertia_com [L, 3, 3] (0 on the entries the RNEA does not
+    read), damping [D], one after the other."""
+    shapes = _cotangent_shapes(robot)
+    parts = flat.split([math.prod(s) for s in shapes.values()])
+    return {f: x.view(s) for (f, s), x in zip(shapes.items(), parts)}
+
+
+def robot_cotangent_size(robot: RobotStruct) -> int:
+    """The length of the flat robot cotangent, 19 L + D."""
+    return sum(math.prod(s) for s in _cotangent_shapes(robot).values())
 
 
 def rnea_bwd_learnable(robot: RobotStruct, q, qd, qdd, g, use_damping=True, include_gravity=True,
                        gravity=GRAVITY):
     """The VJP of K4's learnable form for the cotangent g [B, D] on τ:
     (q̄, q̄d, q̄dd) [B, D] each and the robot's cotangent {field: tensor} for
-    ROBOT_FIELDS, from one kernel that writes each scenario's partials and a
-    sum over the batch. Raises for a revolute joint whose axis is not of
-    unit length. Plain version: `rnea_bwd_learnable_reference`."""
+    ROBOT_FIELDS, from one kernel and the sum of its blocks' rows on the
+    card. Raises for a revolute joint whose axis is not of unit length.
+    Plain version: `rnea_bwd_learnable_reference`."""
     ins = (("q", q), ("qd", qd), ("qdd", qdd), ("g", g))
     _check_rnea(robot, ins)
     _check_link_tensors(robot)
@@ -384,12 +417,16 @@ def rnea_bwd_learnable(robot: RobotStruct, q, qd, qdd, g, use_damping=True, incl
     for n, x in ins:
         _check_cuda(x, n)
     outs = (torch.empty_like(q), torch.empty_like(q), torch.empty_like(q))
-    B = q.shape[0]
-    part = torch.empty((LINK_ROWS * robot.n_links + robot.n_dofs, B), dtype=q.dtype, device=q.device)
-    if _learnable_launch("rnea_bwd_learnable", robot,
-                         StepFlags(0.0, use_damping, include_gravity, gravity), ins, (*outs, part)):
-        rnea_bwd_learnable.launches += 1
-    return (*outs, robot_cotangent(robot, part.sum(1)))
+    B, cols = q.shape[0], robot_cotangent_size(robot)
+    if B == 0:
+        return (*outs, robot_cotangent(robot, torch.zeros(cols, dtype=q.dtype, device=q.device)))
+    build.load("rnea", _configure)  # the layout that sizes the rows
+    flat = torch.empty(cols, dtype=q.dtype, device=q.device)
+    rows = torch.empty((learnable_rows(B), cols), dtype=q.dtype, device=q.device)
+    _learnable_launch("rnea_bwd_learnable", robot,
+                      StepFlags(0.0, use_damping, include_gravity, gravity), ins, (*outs, rows, flat))
+    rnea_bwd_learnable.launches += 1
+    return (*outs, robot_cotangent(robot, flat))
 
 
 rnea_bwd_learnable.launches = 0

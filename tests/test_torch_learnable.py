@@ -11,7 +11,8 @@ overlay requires grad. Inverse dynamics routes as the JAX package routes it
 whose tensors require grad. K4's learnable launch sends the template of
 the topology (built without reading a tensor: the struct's tensors here
 are on the meta device) and the link tensors' pointers, in the order the
-library declares; the robot cotangent's rows map onto the fields.
+library declares; the robot VJP's per-block scratch holds a row a block of
+its grid; the flat robot cotangent maps onto the fields.
 """
 
 import ctypes
@@ -213,6 +214,7 @@ class _Entry:
     def __call__(self, sizes):
         layout = [ctypes.sizeof(kr.TREE_CTYPES[t]) for t in (torch.float32, torch.float64)]
         layout += [kr.MAX_LINKS] + [x for shape in kr.SERIAL_SHAPES for x in shape]
+        layout += [16, 4096]  # a learnable launch's fewest scenarios a block, most blocks
         sizes[:len(layout)] = layout
 
 
@@ -232,7 +234,9 @@ def test_learnable_launch_sends_the_link_tensors(monkeypatch):
     s = drt.DifferentiablePandaWithGripper(device="cpu").struct
     B, D = 6, s.n_dofs
     ins = tuple((n, torch.zeros((B, D))) for n in ("q", "qd", "qdd", "g"))
-    outs = tuple(torch.empty((B, D)) for _ in range(3)) + (torch.empty((16 * s.n_links + D, B)),)
+    cols = kn.robot_cotangent_size(s)
+    outs = tuple(torch.empty((B, D)) for _ in range(3)) + (
+        torch.empty((kn.learnable_rows(B), cols)), torch.empty(cols))
     flags = kr.StepFlags(0.0)
     assert kn._learnable_launch("rnea_fwd_learnable", s, flags, ins[:3], outs[:1])
     assert kn._learnable_launch("rnea_bwd_learnable", s, flags, ins, outs)
@@ -240,7 +244,7 @@ def test_learnable_launch_sends_the_link_tensors(monkeypatch):
                                     tuple((n, x[:0]) for n, x in ins[:3]), outs[:1])
     links = tuple(getattr(s, f).data_ptr() for f in
                   ("trans", "rot_angles", "axis", "mass", "com", "inertia_com", "damping"))
-    for (name, args), n_in, n_out, kernel in zip(calls, (3, 4), (1, 4), ("fwd", "bwd")):
+    for (name, args), n_in, n_out, kernel in zip(calls, (3, 4), (1, 5), ("fwd", "bwd")):
         assert name == f"rnea_{kernel}_learnable_f32"
         assert args[0] == kr.VARIANTS.index("generic16")
         assert args[1]._obj is kn.tree_template(s, flags)
@@ -250,19 +254,32 @@ def test_learnable_launch_sends_the_link_tensors(monkeypatch):
         assert args[-1] == B
         types_ = lib.entries[name].argtypes
         assert len(types_) == len(args) + 1 and types_[-2:] == [ctypes.c_int64, ctypes.c_void_p]
+    fn = lib.entries["rnea_learnable_one_thread_from"]
+    assert fn.argtypes == [] and fn.restype is ctypes.c_int64
+
+
+@pytest.mark.parametrize("B, rows", [(1, 1), (16, 1), (17, 2), (250, 16), (65536, 4096), (10**7, 4096)])
+def test_learnable_rows_cover_the_grid(B, rows):
+    # the library's layout: a block takes at least 16 scenarios, a grid at
+    # most 4096 blocks; one row of the robot VJP's scratch a block
+    kn._configure(_Library())
+    assert kn.learnable_rows(B) == rows
 
 
 def test_robot_cotangent_rows():
+    # the flat cotangent the VJP's last launch writes, built from the plain
+    # version's dict in its order, maps back onto the fields
     s = _iiwa().struct
     L, D = s.n_links, s.n_dofs
-    rows = torch.arange(16 * L + D, dtype=torch.float64)
-    c = kn.robot_cotangent(s, rows)
-    l = 4
-    np.testing.assert_array_equal(c["trans"][l].numpy(), 16 * l + np.arange(3))
-    np.testing.assert_array_equal(c["rot_angles"][l].numpy(), 16 * l + 3 + np.arange(3))
-    assert float(c["mass"][l]) == 16 * l + 6
-    np.testing.assert_array_equal(c["com"][l].numpy(), 16 * l + 7 + np.arange(3))
-    I = c["inertia_com"][l].numpy()
-    np.testing.assert_array_equal(I[np.triu_indices(3)], 16 * l + 10 + np.arange(6))
-    np.testing.assert_array_equal(I[np.tril_indices(3, -1)], 0.0)
-    np.testing.assert_array_equal(c["damping"].numpy(), 16 * L + np.arange(D))
+    rng = np.random.default_rng(0)
+    x = [torch.from_numpy(rng.uniform(-1, 1, (4, D))) for _ in range(4)]
+    ref = kn.rnea_bwd_learnable_reference(s, *x)[3]
+    order = ("trans", "rot_angles", "mass", "com", "inertia_com", "damping")
+    flat = torch.cat([ref[f].reshape(-1) for f in order])
+    assert flat.numel() == kn.robot_cotangent_size(s) == 19 * L + D
+    c = kn.robot_cotangent(s, flat)
+    assert list(c) == list(kn.ROBOT_FIELDS)
+    for f in kn.ROBOT_FIELDS:
+        assert c[f].shape == ref[f].shape
+        torch.testing.assert_close(c[f], ref[f], rtol=0, atol=0)
+    np.testing.assert_array_equal(c["inertia_com"].numpy()[:, [1, 2, 2], [0, 0, 1]], 0.0)
