@@ -64,9 +64,17 @@ def riccati_gains_horizon_sharded(
     Returns (ks [H, ..., m], Ks [H, ..., m, n]), whole on every rank, equal
     to the sequential Riccati recursion. The communication is two
     all-gathers: the block totals, and each block's gains.
+
+    The all-gathers carry no gradient, so a call that would keep a graph
+    (grad mode on and an input requiring grad, as in a graph-keeping
+    `ilqr(riccati="horizon_sharded")`) raises before any collective rather
+    than return gains cut from it; `riccati="parallel"` differentiates.
     """
     if mesh.ndim != 1:
         raise ValueError(f"the horizon mesh is 1-D, got {mesh.ndim} dimensions")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (A, B, lx, lu, lxx, luu, lux, Vx, Vxx)):
+        raise ValueError("the horizon-sharded Riccati's all-gathers carry no gradient: run it "
+                         "under torch.no_grad(), or use riccati='parallel' to differentiate")
     group, n_dev, me = mesh.get_group(), mesh.size(), mesh.get_local_rank()
     H = A.shape[0]
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)

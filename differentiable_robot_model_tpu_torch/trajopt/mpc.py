@@ -512,12 +512,12 @@ def make_ilqr_mpc_step_batch(robot: RobotStruct, ee_link_idx: int, config: ILQRM
                                                 effort_w=ew, u_ref=tau_ref, f_AB=f_AB)
         else:
             linearize = autodiff_linearize(smooth, cost, goal_term)
-        result = ilqr_batch(
-            plant, cost, goal_term, torch.cat([states.q, states.qd], dim=-1), states.plan,
-            n_iters=config.iters_per_step, reg=config.reg, riccati=config.riccati,
-            control_bounds=control_bounds, linearize=linearize,
-        )
-        with torch.no_grad():
+        with torch.no_grad():  # the MPC step differentiates nothing: no graph
+            result = ilqr_batch(
+                plant, cost, goal_term, torch.cat([states.q, states.qd], dim=-1), states.plan,
+                n_iters=config.iters_per_step, reg=config.reg, riccati=config.riccati,
+                control_bounds=control_bounds, linearize=linearize,
+            )
             n_exec = config.replan_interval
             x = torch.cat([states.q, states.qd], dim=-1)
             for i in range(n_exec):

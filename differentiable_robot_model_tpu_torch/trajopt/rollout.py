@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models.structs import RobotStruct
 from ..ops import kinematics as K
@@ -91,18 +92,30 @@ def dynamic_rollout_dof_major(
     dt: float,
     include_gravity: bool = True,
     use_damping: bool = True,
+    unroll: int = 1,
     respect_effort_limits: bool = False,
+    remat: bool = False,
     gravity: float = GRAVITY,
 ):
     """Integrate B scenarios through H semi-implicit Euler steps of the
     forward dynamics (`fd_step_implicit_damping`), with the URDF velocity
     clamp after each step and, with `respect_effort_limits`, the effort box
     on each torque first. Returns (qs, qds), each [H, D, B]: the state after
-    each step."""
+    each step.
+
+    `unroll` is the JAX package's unroll factor of its horizon scan; eager
+    torch runs the steps one by one whatever it is, so any int >= 1 gives
+    the same values (below 1 raises). `remat=True` recomputes each step in
+    the backward pass (`torch.utils.checkpoint`), which keeps only the
+    [D, B] carry per step alive between the forward and the backward: the
+    JAX package's `jax.checkpoint` trade, with the same values and
+    gradients."""
+    if unroll < 1:
+        raise ValueError(f"unroll must be an int >= 1, got {unroll!r}")
     vmax = _velocity_bound(robot, q0T.dim() - 1)
     emax = _effort_bound(robot, q0T.dim() - 1) if respect_effort_limits else None
-    q, qd, qs, qds = q0T, qd0T, [], []
-    for tau_t in tauT:
+
+    def step(q, qd, tau_t):
         if emax is not None:
             tau_t = _clip(tau_t, -emax, emax)
         qdd = fd_step_implicit_damping(
@@ -110,7 +123,14 @@ def dynamic_rollout_dof_major(
             gravity=gravity,
         )
         qd = _clip(qd + dt * qdd, -vmax, vmax)
-        q = q + dt * qd
+        return q + dt * qd, qd
+
+    q, qd, qs, qds = q0T, qd0T, [], []
+    for tau_t in tauT:
+        if remat:
+            q, qd = checkpoint(step, q, qd, tau_t, use_reentrant=False)
+        else:
+            q, qd = step(q, qd, tau_t)
         qs.append(q)
         qds.append(qd)
     return torch.stack(qs), torch.stack(qds)

@@ -9,10 +9,12 @@ the steps along action directions that barely move the end effector.
 
 Every solver takes its plain engine for a robot whose tensors require grad,
 whatever engine it is given (the JAX package's kernel engines run their
-plain path for a traced robot); the Adam solvers do so too where q0, qd0,
-the goals or the warm start require grad, and then stay differentiable
-w.r.t. the robot and those inputs through the whole solve (identification
-through it, gradients w.r.t. a solve's inputs).
+plain path for a traced robot); the Adam and MPPI solvers do so too where
+q0, qd0, the goals or the warm start require grad, and then stay
+differentiable w.r.t. the robot and those inputs through the whole solve
+(identification through it, gradients w.r.t. a solve's inputs). iLQR
+follows the caller's grad mode: its plant and IFT Jacobians keep their
+graphs through the rollout kernels' autograd entry and the plain replay.
 
 `solve_kinematic_adam_batch` has three engines:
 - "scalar": plain torch with autograd through the scalar-expanded FK;
@@ -56,6 +58,7 @@ from ..ops.kernels.rollout import (
     dyn_rollout_fwd_reference,
     dyn_rollout_replay,
     dyn_rollout_replay_reference,
+    dynamic_rollout,
     dynamic_rollout_ee,
     replay_layout,
 )
@@ -374,7 +377,9 @@ def solve_dynamic_adam_batch(
     init_actions: torch.Tensor | None = None,  # [B, H, D] absolute torques
     use_damping: bool = True,
     precondition: bool = True,
+    rollout_unroll: int = 1,
     respect_effort_limits: bool = False,
+    rollout_remat: bool = False,
     rollout_impl: str = "auto",
 ) -> BatchTrajOptResult:
     """Batched torque-space MPC solve: Adam on H torque deltas per scenario
@@ -395,7 +400,15 @@ def solve_dynamic_adam_batch(
     does, the engine is "scan" and the whole solve (tau_ref, H0, the warm
     start, every Adam step and the final cost) stays differentiable w.r.t.
     them, as the JAX package's is.
+
+    `rollout_unroll` and `rollout_remat` go to the "scan" engine's
+    `dynamic_rollout_dof_major` (`unroll`, `remat`: the same values and
+    gradients, `remat` recomputing each step in the backward pass); the
+    "kernel" and "fused" engines ignore them, as the JAX package's fused
+    path does. `rollout_unroll` below 1 raises on every engine.
     """
+    if rollout_unroll < 1:
+        raise ValueError(f"rollout_unroll must be an int >= 1, got {rollout_unroll!r}")
     B, D = q0.shape
     H = horizon
     through = _needs_graph(robot, q0, qd0, goal_ee_pos, init_actions)
@@ -424,7 +437,8 @@ def solve_dynamic_adam_batch(
             return dynamic_rollout_ee(robot, q0T, qd0T, tauT, dt, ee_link_idx, use_damping=use_damping)[2]
     else:
         def ee_traj(tauT):
-            qs, _ = dynamic_rollout_dof_major(robot, q0T, qd0T, tauT, dt, use_damping=use_damping)
+            qs, _ = dynamic_rollout_dof_major(robot, q0T, qd0T, tauT, dt, use_damping=use_damping,
+                                              unroll=rollout_unroll, remat=rollout_remat)
             p = fk_link_position_dof_first(robot, qs.transpose(0, 1).reshape(D, H * B), ee_link_idx)
             return p.reshape(3, H, B).transpose(0, 1)
 
@@ -461,15 +475,17 @@ class MPPIResult(NamedTuple):
 
 
 def resolve_mppi_engine(rollout_impl: str, robot: RobotStruct, n_samples: int, adapt: bool,
-                        batched: bool) -> str:
+                        batched: bool, grad: bool = False) -> str:
     """The engine `rollout_impl` names, resolved once, before any launch: for
     a batch the whole-solve kernel K10 ("fused") on a CUDA float32 robot
     without adaptation and with at most 1024 samples, the per-iteration
     rollout kernel ("kernel") on other CUDA robots, plain torch ("scan") on
-    the CPU ("auto"), or the engine named; "scan" for a robot whose tensors
-    require grad, whatever `rollout_impl` names (the JAX package's kernel
-    engines run its scan for a traced robot). An explicit "fused" that K10
-    cannot run raises."""
+    the CPU ("auto"), or the engine named; "scan", whatever `rollout_impl`
+    names, for a robot whose tensors require grad or with `grad` (q0, qd0,
+    the goals or the warm start require grad: the kernels are no autograd
+    nodes for them; the JAX package's kernel engines run its scan for a
+    traced robot). An explicit "fused" that K10 cannot run raises, whatever
+    `grad` says."""
     engines = MPPI_BATCH_ENGINES if batched else MPPI_ENGINES
     if rollout_impl not in engines:
         raise ValueError(f"rollout_impl must be one of {engines}, got {rollout_impl!r}")
@@ -480,7 +496,7 @@ def resolve_mppi_engine(rollout_impl: str, robot: RobotStruct, n_samples: int, a
         if n_samples > MAX_SAMPLES:
             raise ValueError(f"rollout_impl='fused' takes at most {MAX_SAMPLES} samples, "
                              f"got {n_samples}")
-    if robot.requires_grad:
+    if grad or robot.requires_grad:
         return "scan"
     if rollout_impl != "auto":
         return rollout_impl
@@ -560,7 +576,7 @@ def _mppi_dof_major(robot, q0, qd0, goal_ee_pos, ee_link_idx, horizon, key, init
     q0T, qd0T, goalT = (x.T.contiguous() for x in (q0, qd0, goal_ee_pos))
     init_tauT = None
     if init_actions is not None:
-        init_tauT = init_actions.detach().to(robot.dtype).permute(1, 2, 0).contiguous()
+        init_tauT = init_actions.to(robot.dtype).permute(1, 2, 0).contiguous()
     prologue = dyn_prologue_reference if engine == "scan" else dyn_prologue
     tau_refT, H0, aT0 = prologue(robot, q0T, init_tauT, H, precondition)
     if engine == "fused":
@@ -636,10 +652,15 @@ def solve_dynamic_mppi(
     torch), "kernel" (the rollout kernel K7 on the K sample lanes once per
     iteration; JAX's "pallas"); "auto" is "kernel" on CUDA, "scan" on the
     CPU. Returns the applied torques [H, D], the final nominal cost and the
-    best sampled cost of each iteration.
+    best sampled cost of each iteration. For a robot whose tensors require
+    grad, or a q0, qd0, goal or warm start that does, the engine is "scan"
+    whatever `rollout_impl` names, and the solve (the prologue, every
+    iteration's softmax-weighted update, the final cost) stays
+    differentiable w.r.t. them, as the JAX package's scanned solve is.
     """
     engine = resolve_mppi_engine(rollout_impl, robot, n_samples, adapt_sigma or adapt_temperature,
-                                 batched=False)
+                                 batched=False,
+                                 grad=_needs_graph(robot, q0, qd0, goal_ee_pos, init_actions))
     tau, cost, history = _mppi_dof_major(
         robot, q0[None], qd0[None], goal_ee_pos[None], ee_link_idx, horizon, key,
         None if init_actions is None else init_actions[None], engine, n_samples, n_iters, dt,
@@ -691,10 +712,13 @@ def solve_dynamic_mppi_batch(
     "fused" runs no adaptation and at most 1024 samples, and raises where
     asked for either. "auto" is "fused" for a CUDA float32 robot where it
     can run, "kernel" for other CUDA robots, "scan" on the CPU. On one key
-    the engines draw the same noise, so they differ only by rounding.
+    the engines draw the same noise, so they differ only by rounding. An
+    input or a robot that requires grad takes "scan", whatever
+    `rollout_impl` names, as `solve_dynamic_mppi` does.
     """
     engine = resolve_mppi_engine(rollout_impl, robot, n_samples, adapt_sigma or adapt_temperature,
-                                 batched=True)
+                                 batched=True,
+                                 grad=_needs_graph(robot, q0, qd0, goal_ee_pos, init_actions))
     tau, cost, history = _mppi_dof_major(
         robot, q0, qd0, goal_ee_pos, ee_link_idx, horizon, key, init_actions, engine, n_samples,
         n_iters, dt, temperature, noise_sigma, goal_weight, effort_weight, use_damping,
@@ -915,6 +939,12 @@ def autodiff_linearize(dynamics, cost, final_cost):
     return linearize
 
 
+def _keeps_graph(robot, *inputs) -> bool:
+    """Whether a call must record its graph: grad mode is on and the robot
+    or one of the inputs requires grad."""
+    return torch.is_grad_enabled() and _needs_graph(robot, *inputs)
+
+
 def make_plant_dynamics(robot: RobotStruct, dt: float, use_damping: bool = True,
                         plain: bool = False):
     """The torque-space plant every dynamic MPC driver integrates, as an
@@ -923,8 +953,15 @@ def make_plant_dynamics(robot: RobotStruct, dt: float, use_damping: bool = True,
     joint damping and the URDF velocity clamp. The leading axes go onto the
     lanes of one launch of the rollout kernel K5 (`dyn_rollout_fwd` at H=1,
     its plain version on CPU tensors); with `plain=True` always the plain
-    version, which `torch.func` can differentiate (K5's wrapper cannot)."""
-    step = dyn_rollout_fwd_reference if plain else dyn_rollout_fwd
+    version, which `torch.func` can differentiate (K5's wrapper cannot).
+
+    A call that must keep its graph (grad mode on, and x, u or the robot
+    requiring grad: a graph-keeping `ilqr_batch`) goes through the autograd
+    entry `ops.kernels.rollout.dynamic_rollout` at H=1 instead: K5 forward
+    and the adjoint kernel K6 backward, or the plain differentiable rollout
+    for a robot whose tensors require grad. This is decided per call,
+    before any launch; a call that keeps no graph launches K5 alone, as
+    before. A kernel's build or launch error raises either way."""
     D = robot.n_dofs
 
     def dynamics(x, u):
@@ -932,6 +969,10 @@ def make_plant_dynamics(robot: RobotStruct, dt: float, use_damping: bool = True,
         q = x[..., :D].reshape(-1, D).T.contiguous()
         qd = x[..., D:].reshape(-1, D).T.contiguous()
         tau = u.reshape(-1, D).T.contiguous()[None]
+        if plain:
+            step = dyn_rollout_fwd_reference
+        else:
+            step = dynamic_rollout if _keeps_graph(robot, x, u) else dyn_rollout_fwd
         qs, qds = step(robot, q, qd, tau, dt, use_damping=use_damping)
         return torch.cat([qs[0].T, qds[0].T], dim=-1).reshape(lead + (2 * D,))
 
@@ -967,6 +1008,14 @@ def make_ift_f_AB(
     2D, D]), a drop-in for `autodiff_f_AB`. The mask is taken at the
     robot's URDF velocity bound: `vmax`, kept for the JAX package's
     signature, must be that bound.
+
+    A call that must keep its graph (grad mode on, and xs, us or the robot
+    requiring grad: a graph-keeping `ilqr_batch`, whose gains then carry
+    the Jacobians' derivatives) takes the plain replay
+    `dyn_rollout_replay_reference`, which autograd differentiates; the
+    replay kernel has no backward. This is decided per call, before any
+    launch. The mask is piecewise constant and carries no gradient, as the
+    JAX package's comparisons carry none.
     """
     D = robot.n_dofs
     lay = replay_layout(D, False, False)
@@ -975,9 +1024,10 @@ def make_ift_f_AB(
                                                             device=bound.device), bound):
         raise ValueError("make_ift_f_AB takes the clamp's mask at the robot's URDF velocity "
                          "bound; vmax must be that bound")
-    replay = dyn_rollout_replay_reference if plain else dyn_rollout_replay
 
     def f_AB(xs, us):
+        plain_replay = plain or _keeps_graph(robot, xs, us)
+        replay = dyn_rollout_replay_reference if plain_replay else dyn_rollout_replay
         H_, B_ = xs.shape[0], xs.shape[1]
         dtype, dev = xs.dtype, xs.device
         qT = xs[..., :D].transpose(1, 2)  # [H, D, B]
@@ -1118,6 +1168,16 @@ def ilqr_batch(
     Each iteration's parts run under `torch.profiler` spans for a trace to
     read: "ilqr.backward_pass" (with "ilqr.linearize" inside),
     "ilqr.line_search", and "ilqr.plant" around each dynamics step.
+
+    The solve follows the caller's grad mode, as `jax.grad` follows the JAX
+    package's trace: where x0s, us_init or a tensor the callables close
+    over (a goal, the robot) requires grad, every output stays
+    differentiable w.r.t. it through every iteration (the linearization,
+    the Riccati gains, the line search's selection; `lam` carries no
+    gradient). Where none does, autograd records nothing. The callables
+    must then be differentiable: `make_plant_dynamics` and `make_ift_f_AB`
+    keep their graphs through the rollout kernels' autograd entry and the
+    plain replay, decided per call. The `mesh=` form keeps the graph too.
     """
     if riccati == "horizon_sharded":
         raise ValueError("horizon_sharded does not compose with the scenario batch; use "
@@ -1134,9 +1194,8 @@ def ilqr_batch(
                          riccati=riccati, control_bounds=control_bounds, linearize=linearize,
                          diagnostics=diagnostics)
         return tree_map(lambda x: _wrap(mesh, x), out)
-    with torch.no_grad():
-        return _ilqr(dynamics, cost, final_cost, x0s, us_init, n_iters, reg, line_search_alphas,
-                     riccati, control_bounds, linearize, diagnostics)
+    return _ilqr(dynamics, cost, final_cost, x0s, us_init, n_iters, reg, line_search_alphas,
+                 riccati, control_bounds, linearize, diagnostics)
 
 
 def _backward_pass(linearize, riccati, xs, us, lam, riccati_mesh=None):
@@ -1257,17 +1316,17 @@ def ilqr(
     `parallel.mesh.make_mesh`; `parallel.horizon.riccati_gains_horizon_
     sharded`, with lam I on luu as the parallel form takes it): every rank
     calls `ilqr` with the same arguments and gets the whole solve; it
-    raises without a mesh."""
+    raises without a mesh. Differentiable as `ilqr_batch` is, but for
+    "horizon_sharded", whose all-gathers carry no gradient: a call that
+    keeps a graph raises there."""
     if riccati == "horizon_sharded":
         if riccati_mesh is None:
             raise ValueError("riccati='horizon_sharded' requires riccati_mesh")
     elif riccati not in RICCATI:
         raise ValueError(f"riccati must be one of {RICCATI + ('horizon_sharded',)}, "
                          f"got {riccati!r}")
-    with torch.no_grad():
-        out = _ilqr(dynamics, cost, final_cost, x0[None], us_init[None], n_iters, reg,
-                    line_search_alphas, riccati, control_bounds, linearize, diagnostics,
-                    riccati_mesh)
+    out = _ilqr(dynamics, cost, final_cost, x0[None], us_init[None], n_iters, reg,
+                line_search_alphas, riccati, control_bounds, linearize, diagnostics, riccati_mesh)
     if not diagnostics:
         return ILQRResult(*(x[0] for x in out))
     return ILQRResult(*(x[0] for x in out[0])), {k: v[0] for k, v in out[1].items()}
