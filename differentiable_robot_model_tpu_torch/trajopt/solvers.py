@@ -1313,12 +1313,14 @@ def ilqr(
     [n_iters+1]) and, with `diagnostics=True`, the dict of per-iteration
     internals of one scenario. `riccati="horizon_sharded"` spreads the
     backward pass over the ranks of `riccati_mesh` (a 1-D mesh of
-    `parallel.mesh.make_mesh`; `parallel.horizon.riccati_gains_horizon_
-    sharded`, with lam I on luu as the parallel form takes it): every rank
-    calls `ilqr` with the same arguments and gets the whole solve; it
-    raises without a mesh. Differentiable as `ilqr_batch` is, but for
-    "horizon_sharded", whose all-gathers carry no gradient: a call that
-    keeps a graph raises there."""
+    `parallel.mesh.make_mesh`, or the "horizon" axis of a mesh of more
+    dimensions; `parallel.horizon.riccati_gains_horizon_sharded`, with lam
+    I on luu as the parallel form takes it): every rank calls `ilqr` with
+    the same arguments and the same `requires_grad` pattern, gets the
+    whole solve, and differentiates the same loss of it; it raises without
+    a mesh. Differentiable as `ilqr_batch` is; a graph-keeping
+    horizon-sharded solve differentiates as the "parallel" form does, its
+    Riccati's backward adding two all-reduces an iteration."""
     if riccati == "horizon_sharded":
         if riccati_mesh is None:
             raise ValueError("riccati='horizon_sharded' requires riccati_mesh")

@@ -31,9 +31,12 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from torch.distributed.device_mesh import DeviceMesh
+
 import differentiable_robot_model_tpu_torch as drt
 from differentiable_robot_model_tpu_torch.models.fleet import build_fleet
 from differentiable_robot_model_tpu_torch.models.parametrizations import PositiveScalar
+from differentiable_robot_model_tpu_torch.ops import kinematics as TK
 from differentiable_robot_model_tpu_torch.ops.kernels import rng
 from differentiable_robot_model_tpu_torch.ops.kernels import solver as ksolver
 from differentiable_robot_model_tpu_torch.parallel import mesh as pm
@@ -55,6 +58,7 @@ SELF_TOL = 1e-12  # against the port's unsharded call
 # 1e-8; the costs at TOL and SELF_TOL.
 ILQR_US_TOL = 1e-8
 RICCATI_ORDER = ("A", "B", "lx", "lu", "lxx", "luu", "lux", "Vx", "Vxx")
+SYMMETRIC = ("lxx", "luu", "Vxx")
 MPPI = dict(n_samples=8, n_iters=2, rollout_impl="scan")
 F64 = torch.float64
 
@@ -185,6 +189,97 @@ def _ilqr_hs(mesh, ref, out, rank):
             out[f"ilqr_hs/{riccati}/cost_history"] = r.cost_history
 
 
+def _weighted_gains_grad(gains, prob, wk, wK):
+    """The gradient of sum(ks wk) + sum(Ks wK) w.r.t. the nine stage arrays."""
+    leaves = [x.clone().requires_grad_() for x in prob]
+    ks, Ks = gains(*leaves)
+    return torch.autograd.grad(torch.sum(ks * wk) + torch.sum(Ks * wK), leaves)
+
+
+def _put_grads(out, prefix, grads):
+    for k, g in zip(RICCATI_ORDER, grads):
+        out[f"{prefix}/{k}"] = g
+
+
+def _riccati_grad(mesh, ref, out, rank):
+    """(a): the weighted gains' gradient on 4 ranks and on the 3-rank
+    sub-mesh, and with the scenario axis ([H, 2, ...], weights from seed
+    5); rank 0 adds the port's unsharded parallel form's."""
+    prob = [_t(ref[f"riccati/{k}"]) for k in RICCATI_ORDER]
+    w = _t(ref["riccati_grad/wk"]), _t(ref["riccati_grad/wK"])
+    sharded = lambda m: (lambda *a: riccati_gains_horizon_sharded(m, *a))
+    _put_grads(out, "riccati_grad/4", _weighted_gains_grad(sharded(mesh), prob, *w))
+    sub = pm.make_mesh([0, 1, 2], device_type="cpu")
+    if rank < 3:
+        _put_grads(out, "riccati_grad/3", _weighted_gains_grad(sharded(sub), prob, *w))
+    g = np.random.default_rng(4)
+    batched = [torch.stack([x, x + 0.01 * _t(g.normal(size=x.shape)) * (k not in SYMMETRIC)],
+                           dim=1 if k not in ("Vx", "Vxx") else 0)
+               for k, x in zip(RICCATI_ORDER, prob)]
+    g = np.random.default_rng(5)
+    wb = _t(g.normal(size=(21, 2, 2))), _t(g.normal(size=(21, 2, 2, 4)))
+    _put_grads(out, "riccati_grad/batched", _weighted_gains_grad(sharded(mesh), batched, *wb))
+    if rank == 0:
+        _put_grads(out, "riccati_grad/parallel", _weighted_gains_grad(ts._parallel_riccati_gains,
+                                                                      prob, *w))
+        _put_grads(out, "riccati_grad/batched_parallel",
+                   _weighted_gains_grad(ts._parallel_riccati_gains, batched, *wb))
+
+
+def _mesh2d(mesh, ref, out, rank):
+    """(d): the gains and their gradient on the "horizon" axis of a 2x2
+    ("scenario", "horizon") mesh; a 2-D mesh without the axis asked for."""
+    prob = [_t(ref[f"riccati/{k}"]) for k in RICCATI_ORDER]
+    mesh2 = DeviceMesh("cpu", torch.arange(N_RANKS).reshape(2, 2),
+                       mesh_dim_names=("scenario", "horizon"))
+    gains = lambda *a: riccati_gains_horizon_sharded(mesh2, *a)
+    out["mesh2d/ks"], out["mesh2d/Ks"] = gains(*prob)
+    _put_grads(out, "mesh2d/grad", _weighted_gains_grad(gains, prob, _t(ref["riccati_grad/wk"]),
+                                                        _t(ref["riccati_grad/wK"])))
+    try:
+        riccati_gains_horizon_sharded(mesh2, *prob, axis_name="time")
+        out["mesh2d/refused"] = False
+    except KeyError as e:  # it names the mesh's axes
+        out["mesh2d/refused"] = "'scenario', 'horizon'" in str(e)
+
+
+def _ilqr_hs_grad(mesh, ref, out, rank):
+    """(b): the cost's gradient w.r.t. x0 and us_init of
+    ilqr(riccati="horizon_sharded") on the double integrator, H=5 (rank
+    3's block lies past H) and H=21, 3 iterations."""
+    for name in ("h5", "h21"):
+        x0, us0 = (_t(ref[f"ilqr_hs_grad/{name}/{k}"]).requires_grad_() for k in ("x0", "us0"))
+        r = ts.ilqr(*_di_problem(), x0, us0, n_iters=3, riccati="horizon_sharded", riccati_mesh=mesh)
+        out[f"ilqr_hs_grad/{name}/cost"] = r.cost
+        out[f"ilqr_hs_grad/{name}/grad_x0"], out[f"ilqr_hs_grad/{name}/grad_us"] = \
+            torch.autograd.grad(r.cost, (x0, us0))
+
+
+REACH_DT, REACH_ITERS = 0.02, 2
+REACH_W = dict(stage_goal_w=10.0, effort_w=1e-4, final_goal_w=100.0)
+
+
+def _ilqr_reach_hs(mesh, ref, out, rank):
+    """(c): the 2-link reach problem (plain plant, Gauss-Newton
+    linearization, `make_ift_f_AB`), H=3 (one element a rank, the last
+    rank no stage), 2 iterations: the gradient w.r.t. x0, us_init, goal."""
+    s, ee = _two_link()
+    x0, us0, goal = (_t(ref[f"ilqr_reach_hs/{k}"]).requires_grad_() for k in ("x0", "us0", "goal"))
+    tau_ref = _t(ref["ilqr_reach_hs/tau_ref"])
+    dyn = ts.make_plant_dynamics(s, REACH_DT, plain=True)
+    p = lambda x: TK.fk_link_position(s, x[..., :s.n_dofs], ee)
+    cost = lambda x, u: (REACH_W["stage_goal_w"] * torch.sum((p(x) - goal) ** 2, -1)
+                         + REACH_W["effort_w"] * torch.sum((u - tau_ref) ** 2, -1))
+    final = lambda x: REACH_W["final_goal_w"] * torch.sum((p(x) - goal) ** 2, -1)
+    lin = ts.make_gn_reach_linearize(s, ee, dyn, goal, u_ref=tau_ref,
+                                     f_AB=ts.make_ift_f_AB(s, REACH_DT), **REACH_W)
+    r = ts.ilqr(dyn, cost, final, x0, us0, n_iters=REACH_ITERS, linearize=lin,
+                riccati="horizon_sharded", riccati_mesh=mesh)
+    out["ilqr_reach_hs/cost"] = r.cost
+    for k, g in zip(("x0", "us", "goal"), torch.autograd.grad(r.cost, (x0, us0, goal))):
+        out[f"ilqr_reach_hs/grad_{k}"] = g
+
+
 def _ilqr_batch(mesh, ref, out, rank):
     dynamics, cost, final_cost = _di_problem()
     x0s, us0 = _t(ref["ilqr_batch/x0s"]), _t(ref["ilqr_batch/us0"])
@@ -285,7 +380,7 @@ def _placement(mesh, ref, out, rank):
 
 
 CASES = (_placement, _batch_solver, _kin_mpc, _train, _riccati, _ilqr_hs, _ilqr_batch, _grad_sharded,
-         _dyn_mpc, _mppi, _fleet)
+         _dyn_mpc, _mppi, _fleet, _riccati_grad, _mesh2d, _ilqr_hs_grad, _ilqr_reach_hs)
 
 
 def _rank_main(rank, rendezvous, out_dir):
@@ -316,10 +411,11 @@ def ranks(tmp_path_factory):
     return [dict(np.load(d / f"rank{r}.npz")) for r in range(N_RANKS)]
 
 
-def _close(got, want, tol=TOL):
+def _close(got, want, tol=TOL, scale=None):
+    """got to tol of `scale`, by default the largest entry of want or 1."""
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape
-    scale = max(1.0, float(np.max(np.abs(want))))
+    scale = max(1.0, float(np.max(np.abs(want)))) if scale is None else scale
     assert np.max(np.abs(got - want)) <= tol * scale, np.max(np.abs(got - want)) / scale
 
 
@@ -399,6 +495,103 @@ def test_ilqr_horizon_sharded(ranks, ref):
     _close(r0["ilqr_hs/cost_history"], r0["ilqr_hs/sequential/cost_history"], TOL)
     for r in ranks[1:]:
         np.testing.assert_array_equal(r["ilqr_hs/us"], r0["ilqr_hs/us"])
+
+
+def _grad_close(got, want, tol=TOL, scale=None):
+    """A gradient to tol of `scale`, by default its largest entry."""
+    _close(got, want, tol, np.abs(want).max() if scale is None else scale)
+
+
+def _sym(x):
+    return 0.5 * (x + np.swapaxes(x, -1, -2))
+
+
+def _riccati_grads_close(r, prefix, want, tol, symmetric_parts=False):
+    """Every array's gradient against `want[array]`: whole, or with
+    `symmetric_parts` (against the port's parallel form) only the
+    symmetric part of lxx, luu and Vxx, since the antisymmetric part of a
+    gradient w.r.t. a symmetric input depends on the order in which the
+    compositions read its elements."""
+    for k in RICCATI_ORDER:
+        got, w = r[f"{prefix}/{k}"], want[k]
+        if symmetric_parts and k in SYMMETRIC:
+            got, w = _sym(got), _sym(w)
+        _grad_close(got, w, tol)
+
+
+def _grads(d, prefix):
+    return {k: d[f"{prefix}/{k}"] for k in RICCATI_ORDER}
+
+
+def test_riccati_horizon_sharded_gradient(ranks, ref):
+    """(a) The weighted gains' gradient w.r.t. all nine stage arrays, H=21
+    on 4 ranks (padded) and on the 3-rank sub-mesh: against `jax.grad` of
+    JAX's horizon-sharded function, whole; against the port's unsharded
+    parallel form; bitwise equal on every rank. With the scenario axis,
+    against the port's parallel form."""
+    r0 = ranks[0]
+    for n in ("4", "3"):
+        pre = f"riccati_grad/{n}"
+        for r in ranks[1:int(n)]:
+            for k in RICCATI_ORDER:
+                np.testing.assert_array_equal(r[f"{pre}/{k}"], r0[f"{pre}/{k}"])
+        _riccati_grads_close(r0, pre, _grads(ref, pre), TOL)
+        _riccati_grads_close(r0, pre, _grads(r0, "riccati_grad/parallel"),
+                             SELF_TOL, symmetric_parts=True)
+    assert "riccati_grad/3/A" not in ranks[3]
+    _riccati_grads_close(r0, "riccati_grad/batched", _grads(r0, "riccati_grad/batched_parallel"),
+                         SELF_TOL, symmetric_parts=True)
+
+
+@pytest.mark.parametrize("case", ["h5", "h21"])
+def test_ilqr_horizon_sharded_gradient(case, ranks, ref):
+    """(b) ilqr(riccati="horizon_sharded") on the double integrator: the
+    cost's gradient w.r.t. x0 and us_init against `jax.grad` of JAX's, on
+    every rank the same. The problem is linear-quadratic, so the gradient
+    w.r.t. us_init is zero to rounding: it is held at TOL of the x0
+    gradient's scale."""
+    pre = f"ilqr_hs_grad/{case}"
+    r0 = ranks[0]
+    _close(r0[f"{pre}/cost"], ref[f"{pre}/cost"])
+    _grad_close(r0[f"{pre}/grad_x0"], ref[f"{pre}/grad_x0"])
+    _grad_close(r0[f"{pre}/grad_us"], ref[f"{pre}/grad_us"],
+                scale=np.abs(ref[f"{pre}/grad_x0"]).max())
+    assert np.abs(ref[f"{pre}/grad_x0"]).max() > 1.0
+    for r in ranks[1:]:
+        for k in ("grad_x0", "grad_us"):
+            np.testing.assert_array_equal(r[f"{pre}/{k}"], r0[f"{pre}/{k}"])
+
+
+def test_ilqr_reach_horizon_sharded_gradient(ranks, ref):
+    """(c) The 2-link reach problem at H=3 on 4 ranks: the gradient w.r.t.
+    x0, us_init and the goal against `jax.grad` of JAX's
+    ilqr(riccati="horizon_sharded"), none of them zero."""
+    r0 = ranks[0]
+    _close(r0["ilqr_reach_hs/cost"], ref["ilqr_reach_hs/cost"])
+    for k in ("x0", "us", "goal"):
+        want = ref[f"ilqr_reach_hs/grad_{k}"]
+        assert np.abs(want).max() > 1e-3, k
+        _grad_close(r0[f"ilqr_reach_hs/grad_{k}"], want)
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(r[f"ilqr_reach_hs/grad_{k}"], r0[f"ilqr_reach_hs/grad_{k}"])
+
+
+def test_riccati_on_a_2d_mesh(ranks, ref):
+    """(d) On the "horizon" axis of a 2x2 ("scenario", "horizon") mesh the
+    gains and their gradient match JAX's on a 2x2 mesh, and the port's
+    unsharded call, on all four ranks; a 2-D mesh without the axis asked
+    for raises KeyError naming its axes."""
+    r0 = ranks[0]
+    for r in ranks:
+        for k in ["ks", "Ks"] + [f"grad/{a}" for a in RICCATI_ORDER]:
+            np.testing.assert_array_equal(r[f"mesh2d/{k}"], r0[f"mesh2d/{k}"])
+        assert bool(r["mesh2d/refused"])
+    for k in ("ks", "Ks"):
+        _close(r0[f"mesh2d/{k}"], ref[f"riccati_grad/2x2/{k}"])
+        _close(r0[f"mesh2d/{k}"], r0[f"riccati/unsharded/{k}"], SELF_TOL)
+    _riccati_grads_close(r0, "mesh2d/grad", _grads(ref, "riccati_grad/2x2"), TOL)
+    _riccati_grads_close(r0, "mesh2d/grad", _grads(r0, "riccati_grad/parallel"),
+                         SELF_TOL, symmetric_parts=True)
 
 
 def test_ilqr_batch_mesh(ranks, ref):

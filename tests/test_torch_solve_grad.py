@@ -43,6 +43,7 @@ import differentiable_robot_model_tpu_torch as drt
 from differentiable_robot_model_tpu_torch.ops import kinematics as TK
 from differentiable_robot_model_tpu_torch.ops.kernels import rollout as kr
 from differentiable_robot_model_tpu_torch.parallel import mesh as pm
+from differentiable_robot_model_tpu_torch.parallel.horizon import riccati_gains_horizon_sharded
 from differentiable_robot_model_tpu_torch.trajopt import rollout as trollout
 from differentiable_robot_model_tpu_torch.trajopt import solvers as ts
 
@@ -357,20 +358,39 @@ def test_sharded_dynamic_mpc_forwards_remat_and_unroll(ref, tmp_path):
         dist.destroy_process_group()
 
 
-def test_horizon_sharded_riccati_refuses_a_graph(tmp_path):
-    """Its all-gathers carry no gradient: a graph-keeping solve raises
-    before any collective, one that keeps none runs as before."""
+def test_horizon_sharded_riccati_keeps_a_graph(tmp_path):
+    """At world size 1 a graph-keeping horizon-sharded solve differentiates
+    as the parallel form does; its backward refuses create_graph=True; a
+    solve that keeps no graph runs as before."""
     args = _di()
     x0 = torch.tensor([0.2, -0.1, 0.3, 0.05], dtype=F64)
-    us0 = torch.zeros((5, 2), dtype=F64)
+    us0 = torch.tensor(np.random.default_rng(7).normal(0.0, 0.1, (5, 2)))
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1,
                             rank=0)
     try:
         mesh = pm.make_mesh(device_type="cpu")
         kw = dict(n_iters=2, riccati="horizon_sharded", riccati_mesh=mesh)
-        with pytest.raises(ValueError, match="no gradient"):
-            ts.ilqr(*args, x0.clone().requires_grad_(True), us0, **kw)
+        grads = []
+        for form in (kw, dict(n_iters=2, riccati="parallel")):
+            x, u = x0.clone().requires_grad_(True), us0.clone().requires_grad_(True)
+            grads.append(torch.autograd.grad(ts.ilqr(*args, x, u, **form).cost, (x, u)))
+        scale = grads[1][0].abs().max()
+        assert scale > 1.0
+        for got, want in zip(*grads):
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-12 * scale)
+        g = np.random.default_rng(8)
+        stage = [torch.tensor(g.normal(size=(3,) + shape)) for shape in
+                 ((2, 2), (2, 1), (2,), (1,), (2, 2), (1, 1), (1, 2))]
+        stage[4] = stage[4] @ stage[4].mT + torch.eye(2, dtype=F64)
+        stage[5] = stage[5] @ stage[5].mT + 1.0
+        lx = stage[2].requires_grad_(True)
+        ks, _ = riccati_gains_horizon_sharded(mesh, *stage, torch.zeros(2, dtype=F64),
+                                              torch.eye(2, dtype=F64))
+        with pytest.raises(RuntimeError, match="create_graph"):
+            torch.autograd.grad(ks.sum(), lx, create_graph=True)
+        assert torch.autograd.grad(ks.sum(), lx)[0].abs().max() > 0
         res = ts.ilqr(*args, x0, us0, **kw)
+        assert not res.us.requires_grad
         ref = ts.ilqr(*args, x0, us0, n_iters=2, riccati="parallel")
         torch.testing.assert_close(res.us, ref.us, rtol=0, atol=1e-12)
     finally:

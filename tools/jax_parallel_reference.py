@@ -3,7 +3,10 @@ port's sharding, horizon-sharded Riccati and solve gradients to.
 
 Runs the JAX package's sharded functions (`parallel/mesh.py`,
 `parallel/horizon.py`, `ilqr(riccati="horizon_sharded")`, `ilqr_batch(mesh=)`)
-on a 4-device virtual CPU mesh, and `jax.grad` of its solves, in float64
+on a 4-device virtual CPU mesh, the horizon-sharded Riccati also on 3
+devices and on the "horizon" axis of a 2x2 mesh, and `jax.grad` of its
+solves and of the horizon-sharded Riccati and iLQR (under `jit`: eager
+`shard_map` gradients take minutes), in float64
 on inputs drawn from fixed numpy seeds, and writes inputs and outputs to
 tests/data/torch_parallel_jax.npz. The test reads them: tracing and
 compiling these JAX programs takes minutes on the CPU (the gradient
@@ -12,6 +15,8 @@ past the test's budget.
 
     python tools/jax_parallel_reference.py          # write the file
     python tools/jax_parallel_reference.py --check  # recompute, compare with the file
+
+Both print how the recomputed entries compare with those in the file.
 
 The JAX package is the fixed reference: rerun this only where the test's
 cases change.
@@ -36,13 +41,20 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import optax  # noqa: E402
+from jax.sharding import Mesh  # noqa: E402
 
 import differentiable_robot_model_tpu as jdrm  # noqa: E402
 from differentiable_robot_model_tpu.models import fleet as jfleet  # noqa: E402
 from differentiable_robot_model_tpu.models.parametrizations import PositiveScalar  # noqa: E402
+from differentiable_robot_model_tpu.ops import kinematics as JK  # noqa: E402
+from differentiable_robot_model_tpu.ops.dynamics_scalar import rnea_scalar  # noqa: E402
 from differentiable_robot_model_tpu.parallel import mesh as jm  # noqa: E402
 from differentiable_robot_model_tpu.parallel.horizon import riccati_gains_horizon_sharded  # noqa: E402
 from differentiable_robot_model_tpu.trajopt import solvers as js  # noqa: E402
+from differentiable_robot_model_tpu.trajopt.rollout import (  # noqa: E402
+    _velocity_bound,
+    fd_step_implicit_damping,
+)
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "tests", "data", "torch_parallel_jax.npz")
@@ -151,6 +163,39 @@ def riccati(mesh, out):
     out.update({"riccati/ks": ks, "riccati/Ks": Ks})
 
 
+def _dist(a, b):
+    """max |a - b| relative to the largest entry of b, over a pytree."""
+    return max(float(jnp.max(jnp.abs(x - y)) / jnp.max(jnp.abs(y)))
+               for x, y in zip(jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)))
+
+
+def riccati_grad(out):
+    """jax.grad of the weighted gains sum(ks wk) + sum(Ks wK) w.r.t. the nine
+    stage arrays of the riccati/* problem, horizon-sharded on 4 and on 3
+    devices, and on the "horizon" axis of a 2x2 ("scenario", "horizon")
+    mesh (with its gains). Weights from seed 17."""
+    prob = tuple(jnp.asarray(out[f"riccati/{k}"]) for k in RICCATI_ORDER)
+    rng = np.random.default_rng(17)
+    wk, wK = rng.normal(size=out["riccati/ks"].shape), rng.normal(size=out["riccati/Ks"].shape)
+    out.update({"riccati_grad/wk": wk, "riccati_grad/wK": wK})
+    weighted = lambda g: jnp.sum(g[0] * wk) + jnp.sum(g[1] * wK)
+    devs = jax.devices()
+    meshes = {"4": (jm.make_mesh(devs[:4]), "scenario"), "3": (jm.make_mesh(devs[:3]), "scenario"),
+              "2x2": (Mesh(np.array(devs[:4]).reshape(2, 2), ("scenario", "horizon")), "horizon")}
+    par = jax.jit(jax.grad(lambda *a: weighted(js._parallel_riccati_gains(*a)),
+                           argnums=tuple(range(9))))(*prob)
+    for name, (mesh, axis) in meshes.items():
+        gains = lambda *a, mesh=mesh, axis=axis: riccati_gains_horizon_sharded(mesh, *a,
+                                                                               axis_name=axis)
+        grads = jax.jit(jax.grad(lambda *a: weighted(gains(*a)), argnums=tuple(range(9))))(*prob)
+        for k, g in zip(RICCATI_ORDER, grads):
+            out[f"riccati_grad/{name}/{k}"] = g
+        if name == "2x2":
+            out["riccati_grad/2x2/ks"], out["riccati_grad/2x2/Ks"] = jax.jit(gains)(*prob)
+        print(f"riccati_grad {name}: horizon-sharded against parallel, per array:",
+              " ".join(f"{k} {_dist(g, p):.1e}" for k, g, p in zip(RICCATI_ORDER, grads, par)))
+
+
 DI_DT = 0.1
 DI_GOAL = np.array([1.0, -0.5, 0.0, 0.0])
 
@@ -180,6 +225,87 @@ def ilqr_horizon(mesh, out):
                 riccati="horizon_sharded", riccati_mesh=mesh)
     out.update({"ilqr_hs/x0": x0, "ilqr_hs/us0": us0, "ilqr_hs/us": r.us, "ilqr_hs/xs": r.xs,
                 "ilqr_hs/cost_history": r.cost_history})
+
+
+HS_GRAD_ITERS = 3
+
+
+def ilqr_horizon_grad(mesh, out):
+    """jax.grad of ilqr(riccati="horizon_sharded")'s cost w.r.t. x0 and
+    us_init on the double integrator, 3 iterations: H=5 (4 devices hold 6
+    elements padded to 8, the last device none of the stages) and H=21
+    (the inputs of ilqr_hs)."""
+    dynamics, cost, final_cost = _di_problem()
+    rng = np.random.default_rng(23)
+    cases = {"h5": (np.array([0.1, 0.3, -0.2, 0.1]), rng.normal(0, 0.1, (5, 2))),
+             "h21": (out["ilqr_hs/x0"], out["ilqr_hs/us0"])}
+    for name, (x0, us0) in cases.items():
+        def f(x, u, riccati):
+            kw = dict(riccati_mesh=mesh) if riccati == "horizon_sharded" else {}
+            return js.ilqr(dynamics, cost, final_cost, x, u, n_iters=HS_GRAD_ITERS, riccati=riccati,
+                           **kw).cost
+
+        args = (jnp.asarray(x0), jnp.asarray(us0))
+        cost_v, grads = jax.jit(jax.value_and_grad(lambda x, u: f(x, u, "horizon_sharded"),
+                                                   argnums=(0, 1)))(*args)
+        par = jax.jit(jax.grad(lambda x, u: f(x, u, "parallel"), argnums=(0, 1)))(*args)
+        out.update({f"ilqr_hs_grad/{name}/x0": x0, f"ilqr_hs_grad/{name}/us0": us0,
+                    f"ilqr_hs_grad/{name}/cost": cost_v, f"ilqr_hs_grad/{name}/grad_x0": grads[0],
+                    f"ilqr_hs_grad/{name}/grad_us": grads[1]})
+        print(f"ilqr_hs_grad {name}: horizon-sharded against parallel: x0 {_dist(grads[0], par[0]):.1e}"
+              f" us_init {float(jnp.max(jnp.abs(grads[1] - par[1]))) / float(jnp.max(jnp.abs(par[0]))):.1e}"
+              " (of the x0 gradient's largest entry)")
+
+
+REACH_DT, REACH_H, REACH_ITERS = 0.02, 3, 2
+REACH_W = dict(stage_goal_w=10.0, effort_w=1e-4, final_goal_w=100.0)
+
+
+def ilqr_reach_horizon(mesh, out):
+    """jax.grad of ilqr(riccati="horizon_sharded")'s cost w.r.t. x0, us_init
+    and the goal on the 2-link robot's torque plant with
+    make_gn_reach_linearize and make_ift_f_AB (H=3, 2 iterations: 4 devices
+    hold one element each, the last one no stage), as
+    tools/jax_grad_reference.py's ilqr_reach solves each scenario."""
+    s, ee = _two_link()
+    D = s.n_dofs
+    rng = np.random.default_rng(29)
+    q0 = rng.uniform(-0.5, 0.5, D)
+    x0 = np.concatenate([q0, rng.normal(0.0, 0.3, D)])
+    goal = _two_link_goals(rng, 1)[0]
+    tau_ref = np.asarray(rnea_scalar(s, jnp.asarray(q0[:, None]), jnp.zeros((D, 1)),
+                                     jnp.zeros((D, 1))))[:, 0]
+    us0 = tau_ref + rng.normal(0.0, 0.5, (REACH_H, D))
+    vmax = _velocity_bound(s, 0)
+
+    def dynamics(x, u):
+        q, qd = x[:D], x[D:]
+        qd2 = jnp.clip(qd + REACH_DT * fd_step_implicit_damping(s, q, qd, u, REACH_DT), -vmax, vmax)
+        return jnp.concatenate([q + REACH_DT * qd2, qd2])
+
+    f_AB = js.make_ift_f_AB(s, REACH_DT, vmax=vmax)
+    u_ref = jnp.asarray(tau_ref)
+
+    def f(x, u, g, riccati):
+        p = lambda x: JK.fk_link_position(s, x[:D], ee)
+        cost = lambda x, u: (REACH_W["stage_goal_w"] * jnp.sum((p(x) - g) ** 2)
+                             + REACH_W["effort_w"] * jnp.sum((u - u_ref) ** 2))
+        final = lambda x: REACH_W["final_goal_w"] * jnp.sum((p(x) - g) ** 2)
+        lin = js.make_gn_reach_linearize(s, ee, dynamics, g, u_ref=u_ref, f_AB=f_AB, **REACH_W)
+        kw = dict(riccati_mesh=mesh) if riccati == "horizon_sharded" else {}
+        return js.ilqr(dynamics, cost, final, x, u, n_iters=REACH_ITERS, linearize=lin,
+                       riccati=riccati, **kw).cost
+
+    args = tuple(jnp.asarray(a) for a in (x0, us0, goal))
+    cost_v, grads = jax.jit(jax.value_and_grad(lambda *a: f(*a, "horizon_sharded"),
+                                               argnums=(0, 1, 2)))(*args)
+    par = jax.jit(jax.grad(lambda *a: f(*a, "parallel"), argnums=(0, 1, 2)))(*args)
+    out.update({"ilqr_reach_hs/x0": x0, "ilqr_reach_hs/us0": us0, "ilqr_reach_hs/goal": goal,
+                "ilqr_reach_hs/tau_ref": tau_ref, "ilqr_reach_hs/cost": cost_v})
+    for arg, g in zip(("x0", "us", "goal"), grads):
+        out[f"ilqr_reach_hs/grad_{arg}"] = g
+    print("ilqr_reach_hs: horizon-sharded against parallel:",
+          " ".join(f"{a} {_dist(g, p):.1e}" for a, g, p in zip(("x0", "us", "goal"), grads, par)))
 
 
 def ilqr_batch(mesh, out):
@@ -305,9 +431,10 @@ def compute() -> dict:
     mesh = jm.make_mesh(jax.devices()[:N_DEV])
     out = {}
     for case in (batch_solver, kinematic_mpc, train_step, riccati, ilqr_horizon, ilqr_batch,
-                 grad_sharded, dynamic_mpc, mppi, fleet):
+                 grad_sharded, dynamic_mpc, mppi, fleet, ilqr_horizon_grad, ilqr_reach_horizon):
         case(mesh, out)
         print(case.__name__, "done", flush=True)
+    riccati_grad(out)
     solve_gradients(out)
     return {k: np.asarray(v) for k, v in out.items()}
 
@@ -318,16 +445,19 @@ def main():
                     help="recompute and compare with the file instead of writing it")
     args = ap.parse_args()
     out = compute()
-    if not args.check:
-        os.makedirs(os.path.dirname(OUT), exist_ok=True)
-        np.savez_compressed(OUT, **out)
-        print("wrote", OUT, len(out), "arrays")
-        return
-    old = np.load(OUT)
-    bad = [k for k in out if k not in old or old[k].shape != out[k].shape
-           or not np.allclose(old[k], out[k], rtol=1e-12, atol=1e-12)]
-    print("mismatch:", bad or "none")
-    sys.exit(1 if bad else 0)
+    old = dict(np.load(OUT)) if os.path.exists(OUT) else {}
+    bad = [k for k in out if k in old and (old[k].shape != out[k].shape
+                                           or not np.allclose(old[k], out[k], rtol=1e-12, atol=1e-12))]
+    new = [k for k in out if k not in old]
+    same = sum(k in old and old[k].shape == out[k].shape and np.array_equal(old[k], out[k])
+               for k in out)
+    print("mismatch:", bad or "none", "| bitwise equal:", same, "of", len(old), "in the file",
+          "| not in the file:", new or "none")
+    if args.check:
+        sys.exit(1 if bad or new else 0)
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    np.savez_compressed(OUT, **out)
+    print("wrote", OUT, len(out), "arrays")
 
 
 if __name__ == "__main__":
